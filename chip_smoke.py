@@ -5,21 +5,32 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   build    compile the CUDA kernels with nvcc (build/holo_diffusion_torch/)
-  kernels  each kernel against its plain PyTorch version at hydrant shapes
+  kernels  each kernel against its plain PyTorch version at hydrant shapes:
+           the decode forward (K1, K3) at a fine-pass render chunk, its
+           backward (K2) at a training step's fine pass; each kernel's
+           device time per launch (torch.profiler) beside the time of a
+           wrapper call (CUDA events)
   sample   hydrant model (seeded random weights), 1000-step DDPM, B=1
   render   fly-around at 512^2 through the chunked renderer: 2 poses with
            normals (K3), 1 pose of the same model with normals off (K1)
   check    outputs finite and in range; a small render and two DDPM steps
            on the card against the same model on the CPU
+  train    hydrant training at full width on a synthetic batch of 33
+           frames at 800^2: one warm-up step, then 5 timed steps of
+           `make_train_step` (pool, two-pass denoise, render, loss, Adam)
+  check    one training step of a narrow model on the card and on the CPU
+           with the same injected draws: objective and gradients
   profile  device time by kernel and the device's idle share over one
-           512^2 frame and over 10 DDPM steps (torch.profiler)
+           512^2 frame, over 10 DDPM steps and over one training step
   kernels summary, the card's name and power limit, and the result line.
-The launch counters are zeroed right before `sample` and read right after
-`render`: that is the main path, and every kernel must have run in it.
+Two main paths, each with the launch counters zeroed right before it and
+read right after it: serving (`sample` + `render`, which must launch K1 and
+K3) and training (the 5 timed steps, which must launch K3 and K2).
 Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -31,6 +42,20 @@ PEAK_F32_FLOPS = 67e12
 # kernel vs plain version: float32 with another summation order over dot
 # products of <= 283 terms of O(1) values
 KERNEL_TOL = 1e-4
+# backward kernel vs plain backward, relative to each cotangent's largest
+# magnitude. Both sum float32 over all 393,216 points in different orders
+# (atomics against cuBLAS), and both compute each point's 257
+# pre-activations in their own order: one that lies within rounding of 0
+# takes the leaky-ReLU slope 1 on one side and 0.2 on the other, which
+# moves that point's contribution to d_grid by up to ~1e-3 of d_grid's
+# scale (the phase counts such pre-activations). Under the 2e-3 the JAX
+# package holds its training gradients to.
+KERNEL_BWD_TOL = 1e-3
+# training step, card vs CPU at a narrow width: objective (absolute) and
+# gradients relative to each leaf's largest magnitude; float32 through two
+# UNet passes, two render passes and an importance resampling
+TRAIN_OBJ_TOL = 1e-4
+TRAIN_GRAD_TOL = 2e-3
 # card vs CPU, end to end: cuDNN/cuBLAS and CPU kernels sum in other orders;
 # a 2-pass render compounds it through the importance resampling
 RENDER_TOL = 2e-3
@@ -72,6 +97,45 @@ def decode_cost(n_points, n_rays, grid_shape, hidden, pe_dim, normals):
     )
     per_point = 2 * 8 * C + 2 * C * j + 2 * (hidden + pe_dim) * 3 + (2 * 8 * 3 if normals else 0)
     return n_bytes, n_points * per_point
+
+
+def decode_bwd_cost(n_points, n_rays, grid_shape, hidden, pe_dim):
+    """(bytes, flops, bytes with the grid scatter's read-modify-writes) of
+    the decode backward. Bytes: each input read once (points, per-ray
+    directions, the (n, 4) cotangent, grid and weights), each cotangent
+    written once. FLOPs per point: the recomputed forward (sample, affine,
+    radiance layer), then dWr, d_rin, dA, d_s and the 8-corner scatter.
+    The third figure adds 8 corners x C read-modify-writes of d_grid per
+    point, which the scatter makes (in L2 on the H100)."""
+    D, H, W, C = grid_shape
+    j = hidden + 1
+    n_in = n_points * (3 + 4) + n_rays * pe_dim + D * H * W * C + C * j + j + (hidden + pe_dim) * 3 + 3
+    n_out = D * H * W * C + C * j + j + (hidden + pe_dim) * 3 + 3
+    fwd = 2 * 8 * C + 2 * C * j + 2 * (hidden + pe_dim) * 3
+    bwd = 2 * (hidden + pe_dim) * 3 + 2 * 3 * hidden + 2 * C * j + 2 * C * j + 2 * 8 * C
+    n_bytes = 4 * (n_in + n_out)
+    return n_bytes, n_points * (fwd + bwd), n_bytes + 4 * 2 * 8 * C * n_points
+
+
+def device_ms_per_launch(fn, name_part, iters=20):
+    """Device time per launch of the kernel whose name contains `name_part`,
+    from torch.profiler over `iters` calls of `fn` (after one warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name_part in e.key and e.self_device_time_total > 0]
+    count = sum(e.count for e in rows)
+    if count != iters:
+        raise AssertionError(f"profiled {count} launches of {name_part!r}, expected {iters}")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / count
 
 
 def unet_conv_flops(model, dev):
@@ -117,7 +181,7 @@ def kernel_phase(model, results):
     dirs = torch.randn((R, 3), generator=gen, device=dev)
     with torch.no_grad():
         A, c = mlp.density_affine()
-        Wr, br = mlp.radiance_linear()
+        Wr, br = (t.detach() for t in mlp.radiance_linear())
         pe = mlp.encode_dirs(dirs / dirs.norm(dim=-1, keepdim=True))
         g1 = torch.einsum("dhwc,c->dhw", grid, A[:, -1])
     hidden = mlp.dnet_hidden_dim
@@ -132,7 +196,8 @@ def kernel_phase(model, results):
             ref = fd.fused_sample_decode_reference(*args, **kw)
             torch.cuda.synchronize()
             errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
-            ms = cuda_time_ms(lambda: fd.fused_sample_decode(*args, **kw))
+            wrapper_ms = cuda_time_ms(lambda: fd.fused_sample_decode(*args, **kw))
+            ms = device_ms_per_launch(lambda: fd.fused_sample_decode(*args, **kw), "fused_decode_kernel")
             plain_ms = cuda_time_ms(lambda: fd.fused_sample_decode_reference(*args, **kw))
         n_bytes, flops = decode_cost(R * P, R, grid.shape, hidden, pe.shape[-1], normals)
         bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
@@ -148,17 +213,79 @@ def kernel_phase(model, results):
             "bound_by": "bytes" if bytes_ms > flops_ms else "operations",
             "library_ms": None,  # no single PyTorch call computes this function
         }
-        emit({"phase": "kernels", **rec, "points": R * P,
+        emit({"phase": "kernels", **rec, "wrapper_ms": wrapper_ms, "points": R * P,
               "lane_errs": dict(zip(("density", "rgb", "normals"), errs)), "tol": KERNEL_TOL})
         if not max(errs) <= KERNEL_TOL:
             raise AssertionError(f"{name}: max_abs_err {max(errs)} > {KERNEL_TOL}")
         results[name] = rec
+    kernel_bwd_phase(model, grid, A, c, Wr, br, results)
 
 
-def profile_phase(model, v, dev):
+def kernel_bwd_phase(model, grid, A, c, Wr, br, results):
+    """K2 at a hydrant training step's fine pass (3 x 1024 rays x 128
+    points) against the plain backward on the same card, with a random
+    cotangent of the (density, rgb) outputs."""
+    import torch
+
+    from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.ops.voxel import sample_voxel_grid_world
+
+    dev = grid.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    R = 3 * model.n_rays_per_image
+    P = model.n_pts_per_ray_training + model.n_pts_per_ray_fine_training
+    half = 0.6 * model.volume_extent
+    points = (torch.rand((R, P, 3), generator=gen, device=dev) * 2 - 1) * half
+    dirs = torch.randn((R, 3), generator=gen, device=dev)
+    g = torch.randn((R, P, 4), generator=gen, device=dev)
+    mlp = model.implicit_function.render_mlp
+    with torch.no_grad():
+        pe = mlp.encode_dirs(dirs / dirs.norm(dim=-1, keepdim=True))
+        # pre-activations close enough to 0 for the two summation orders to
+        # disagree on their sign (exact zeros, as outside the grid, agree)
+        pre = sample_voxel_grid_world(grid, points, model.volume_extent) @ A + c
+        near_zero = int(((pre != 0) & (pre.abs() < 1e-6)).sum())
+        del pre
+    hidden = mlp.dnet_hidden_dim
+    args = (grid, A, c, Wr, br, points, pe, model.volume_extent, hidden, g)
+    got = fd._fused_sample_decode_bwd_cuda(*args)
+    want = fd.fused_sample_decode_bwd_reference(*args)
+    torch.cuda.synchronize()
+    names = ("d_grid", "dA", "dc", "dWr", "dbr")
+    abs_errs = {n: float((a - b).abs().max()) for n, a, b in zip(names, got, want)}
+    rel_errs = {n: abs_errs[n] / max(float(b.abs().max()), 1e-30) for n, b in zip(names, want)}
+    del got, want
+    wrapper_ms = cuda_time_ms(lambda: fd._fused_sample_decode_bwd_cuda(*args))
+    ms = device_ms_per_launch(lambda: fd._fused_sample_decode_bwd_cuda(*args), "fused_decode_bwd_kernel")
+    plain_ms = cuda_time_ms(lambda: fd.fused_sample_decode_bwd_reference(*args), iters=5)
+    n_bytes, flops, rmw_bytes = decode_bwd_cost(R * P, R, grid.shape, hidden, pe.shape[-1])
+    bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    rec = {
+        "name": "fused_decode_bwd",
+        "route": "cuda",
+        "source": "holo_diffusion_torch/csrc/fused_decode_bwd.cu",
+        "replaces": "holo_diffusion_tpu/ops/pallas/fused_decode.py:173",
+        "max_abs_err": max(abs_errs.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms > flops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+    emit({"phase": "kernels", **rec, "wrapper_ms": wrapper_ms, "points": R * P, "gflop": flops / 1e9,
+          "bytes": n_bytes, "bytes_with_scatter_rmw": rmw_bytes, "abs_errs": abs_errs,
+          "rel_errs": rel_errs, "rel_tol": KERNEL_BWD_TOL, "nonzero_pre_activations_below_1e-6": near_zero})
+    if not max(rel_errs.values()) <= KERNEL_BWD_TOL:
+        raise AssertionError(f"fused_decode_bwd: relative error {rel_errs} > {KERNEL_BWD_TOL}")
+    results["fused_decode_bwd"] = rec
+
+
+def profile_phase(model, v, dev, train_step_fn):
     """Where the time goes: device time by kernel, and the device's idle
     share (1 - device busy / host wall time of an unprofiled run of the same
-    work), over one 512^2 fly-around frame and over 10 DDPM steps."""
+    work), over one 512^2 fly-around frame, over 10 DDPM steps and over one
+    hydrant training step (`train_step_fn`), with the decode kernels' share
+    of the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -172,6 +299,7 @@ def profile_phase(model, v, dev):
         "render_frame": lambda: render_image_chunked(model, cam, v[0], device=dev),
         "ddpm_10_steps": lambda: sample_random_voxel_features(
             model, torch.Generator(device=dev).manual_seed(2), max_iter=10, device=dev),
+        "train_step": train_step_fn,
     }
     for label, fn in windows.items():
         fn()
@@ -189,9 +317,139 @@ def profile_phase(model, v, dev):
             key=lambda r: -r[1],
         )
         busy_ms = sum(r[1] for r in rows)
+        decode = {}
+        for part in ("fused_decode_kernel", "fused_decode_bwd_kernel"):
+            ms = sum(r[1] for r in rows if part in r[0])
+            if ms > 0:
+                decode[part] = {"ms": ms, "count": sum(r[2] for r in rows if part in r[0]),
+                                "share_of_busy": ms / busy_ms}
         emit({"phase": "profile", "window": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
               "idle_share": 1.0 - busy_ms / wall_ms, "device_launches": sum(r[2] for r in rows),
-              "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:8]]})
+              "decode_kernels": decode,
+              "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:10]]})
+
+
+def train_phase(model, cfg, dev, results, steps=5):
+    """Hydrant training at full width: the config's optimizer, a synthetic
+    batch of the config's size (33 frames at 800^2), one warm-up step, then
+    `steps` timed steps of `make_train_step`: the training main path, with
+    the launch counters zeroed right before it and read right after.
+    Returns a function that runs one more step (for the profile)."""
+    import torch
+
+    from holo_diffusion_torch.config import optimizer_args_from_config
+    from holo_diffusion_torch.data.synthetic import make_synthetic_scene
+    from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.parallel.train_step import TrainState, make_train_step
+    from holo_diffusion_torch.train.optimizer import make_lr_schedule, make_optimizer
+
+    data = cfg["data_source_ImplicitronDataSource_args"]
+    n_frames = data["data_loader_map_provider_SequenceDataLoaderMapProvider_args"]["batch_size"]
+    size = data["dataset_map_provider_JsonIndexDatasetMapProviderV2_args"]["dataset_JsonIndexDataset_args"]["image_height"]
+    batch = make_synthetic_scene(n_views=n_frames, image_size=size, radius=2.0, dist=8.0, seed=0, device=dev)
+    oa = optimizer_args_from_config(cfg)
+    opt = make_optimizer(model.named_parameters(), **oa["optimizer"],
+                         schedule=make_lr_schedule(oa["optimizer"]["lr"], **oa["schedule"]))
+    model.train()
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, gen)
+    warm_obj = metrics["objective"].item()
+    warm_s = time.perf_counter() - t0
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    fd.reset_launch_counts()
+    secs, objectives = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        objectives.append(metrics["objective"].item())
+        secs.append(time.perf_counter() - t0)
+    counts = fd.launch_counts()
+    changed = {n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])}
+    modules = {n.split(".")[0] for n, _ in model.named_parameters()}
+    emit({"phase": "train", "frames": n_frames, "image_size": size, "rays": 3 * model.n_rays_per_image,
+          "params": sum(p.numel() for p in model.parameters()), "warmup_s": warm_s,
+          "warmup_objective": warm_obj, "s_per_step": secs, "median_s_per_step": sorted(secs)[len(secs) // 2],
+          "objectives": objectives, "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "params_changed": len(changed), "params_total": len(before), "lr": opt.optimizer.param_groups[0]["lr"],
+          "launches": counts})
+    emit({"phase": "main_path", "path": "train", "launches": counts})
+    if not all(math.isfinite(o) for o in objectives + [warm_obj]):
+        raise AssertionError(f"non-finite training objective: {objectives}")
+    if {n.split(".")[0] for n in changed} != modules:
+        raise AssertionError(f"parameters of {sorted(modules - {n.split('.')[0] for n in changed})} did not change")
+    for name in ("fused_decode_fwd_normals", "fused_decode_bwd"):
+        if counts[name] != 2 * steps:
+            raise AssertionError(f"kernel {name}: {counts[name]} launches on the training path, expected {2 * steps}")
+    results["fused_decode_bwd"]["launches"] = counts["fused_decode_bwd"]
+    results["fused_decode_fwd_normals"]["train_launches"] = counts["fused_decode_fwd_normals"]
+    return lambda: step(state, batch, gen)
+
+
+def train_check_phase(dev):
+    """One training step of a narrow model (C 32, UNet 32 channels, resnet18
+    stages 1-2, 2 x 128 rays) on the card and on the CPU with the same
+    weights and the same injected draws: the objective and the gradients
+    of the UNet's last conv, the pooled-feature mapper, the density net's
+    first layer and the extractor's stem (each relative to its largest
+    magnitude)."""
+    import numpy as np
+    import torch
+
+    from holo_diffusion_torch.data.synthetic import make_synthetic_scene
+    from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
+    from holo_diffusion_torch.weights import init_weights
+
+    toy = dict(
+        resol=8, volume_extent=4.0, feature_size=32, n_train_target_views=2, n_rays_per_image=128,
+        n_pts_per_ray_training=16, n_pts_per_ray_fine_training=16, scene_extent=2.0, render_normals=True,
+        net_3d_args=dict(model_channels=32, num_res_blocks=1, channel_mult=(1, 2), attention_resolutions=(2,)),
+        image_feature_extractor_args=dict(name_arch="resnet18", stages=(1, 2), proj_dim=8, image_rescale=0.5),
+        view_pooler_args=dict(aggregator_class_type="MLPMeanFeatureAggregator",
+                              aggregator_args=dict(n_hidden=32, dim_out=32)),
+        render_mlp_args=dict(dnet_hidden_dim=64, rnet_hidden_dim=16),
+    )
+    cpu_model = init_weights(HoloDiffusionModel(**toy), seed=1)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    scene = make_synthetic_scene(n_views=6, image_size=48, seed=2)
+    rs = np.random.RandomState(3)
+    B, N, P, F = 2, 128, 16, 16
+    draws = {
+        "timesteps": np.array([400, 90]), "take_boot": True,
+        "noise": rs.randn(1, 8, 8, 8, 32), "noise2": rs.randn(1, 8, 8, 8, 32),
+        "ray_pixel_u": rs.rand(B, N), "ray_length_u": rs.rand(B, N, P), "density_noise_0": rs.randn(B, N, P),
+        "refine_u_1": rs.rand(B, N, F), "density_noise_1": rs.randn(B, N, P + F),
+    }
+    objs = {}
+    for label, m, b in (("card", card_model, scene.to(dev)), ("cpu", cpu_model, scene)):
+        preds = m(camera=b.camera, image_rgb=b.image_rgb, fg_probability=b.fg_probability,
+                  mask_crop=b.mask_crop, depth_map=b.depth_map, training=True, draws=draws)
+        preds["objective"].backward()
+        objs[label] = preds["objective"].item()
+    gated = ("net_3d.out.2.weight", "pooled_feature_mapper.weight",
+             "implicit_function.render_mlp._density_net.mlp.0.0.weight", "image_feature_extractor.net.conv1.weight")
+    cpu_grads = dict(cpu_model.named_parameters())
+    rel, scale = {}, {}
+    for n, p in card_model.named_parameters():
+        want = cpu_grads[n].grad
+        scale[n] = float(want.abs().max())
+        rel[n] = float((p.grad.cpu() - want).abs().max()) / max(scale[n], 1e-30)
+    # leaves whose gradient vanishes up to rounding (a conv bias right before
+    # a GroupNorm of one channel per group) have no meaningful relative error
+    largest = max(scale.values())
+    worst = max((n for n in rel if scale[n] > 1e-6 * largest), key=rel.get)
+    obj_err = abs(objs["card"] - objs["cpu"])
+    emit({"phase": "check", "variant": "train_card_vs_cpu", "objective": objs, "objective_abs_err": obj_err,
+          "grad_rel_errs": {n: rel[n] for n in gated}, "worst_leaf_above_1e-6_of_largest_grad": [worst, rel[worst]],
+          "tol": {"objective": TRAIN_OBJ_TOL, "grad_rel": TRAIN_GRAD_TOL}})
+    if obj_err > TRAIN_OBJ_TOL or max(rel[n] for n in gated) > TRAIN_GRAD_TOL:
+        raise AssertionError("training step: card and CPU disagree beyond tolerance")
 
 
 def main():
@@ -208,6 +466,7 @@ def main():
     import numpy as np
 
     from holo_diffusion_torch.cli import build_model
+    from holo_diffusion_torch.config import load_config
     from holo_diffusion_torch.device import set_full_precision
     from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.ops import fused_decode as fd
@@ -229,7 +488,9 @@ def main():
     # ---- build
     t0 = time.perf_counter()
     compiled = _build.build()
-    ptxas = [ln.strip() for ln in _build.build_log("fused_decode").splitlines() if "registers" in ln]
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in _build.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "compiled": compiled,
           "ptxas": ptxas})
 
@@ -274,10 +535,10 @@ def main():
               "size": [m.render_image_height, m.render_image_width],
               "s_per_frame": dt / poses, "streams": sorted(paths)})
     counts = fd.launch_counts()
-    emit({"phase": "main_path", "launches": counts})
-    for name in fd.ENTRY_POINTS:
+    emit({"phase": "main_path", "path": "serve", "launches": counts})
+    for name in ("fused_decode_fwd", "fused_decode_fwd_normals"):
         if counts[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+            raise AssertionError(f"kernel {name} was not launched on the serving path")
         results[name]["launches"] = counts[name]
 
     # ---- check: outputs in range, card against the CPU on a small input
@@ -317,7 +578,12 @@ def main():
     if max(render_err.values()) > RENDER_TOL or sample_err > SAMPLE_TOL:
         raise AssertionError("card and CPU disagree beyond tolerance")
 
-    profile_phase(model, v, dev)
+    # ---- training main path, then the card against the CPU
+    train_step_fn = train_phase(model, load_config("hydrant"), dev, results)
+    train_check_phase(dev)
+
+    model.eval()
+    profile_phase(model, v, dev, train_step_fn)
 
     emit({"kernels": [results[n] for n in fd.ENTRY_POINTS]})
     print(smi, flush=True)

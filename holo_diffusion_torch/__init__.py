@@ -8,7 +8,10 @@ reference: voxel grids are (D, H, W, C), UNet inputs (B, D, H, W, C), rays
 
 Slice 1 covers serving: DDPM/DDIM sampling of a voxel grid and the fly-around
 render, whose implicit function is one hand-written CUDA kernel
-(`csrc/fused_decode.cu`).
+(`csrc/fused_decode.cu`). Slice 2 covers one training step
+(`parallel/train_step.py`): view pooling, the bootstrapped denoise, the
+training render and loss, backward through the decode's backward kernel
+(`csrc/fused_decode_bwd.cu`), and the optimizer step.
 """
 
 __version__ = "0.1.0"

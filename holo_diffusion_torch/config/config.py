@@ -1,9 +1,11 @@
-"""Config loading (port of holo_diffusion_tpu/config/config.py, the subset the
-serving slice reads): YAML files with single-parent `_extends_`, dotted
-`a.b.c=value` overrides, and the model kwargs of `HoloDiffusionModel`.
+"""Config loading (port of holo_diffusion_tpu/config/config.py): YAML files
+with single-parent `_extends_`, dotted `a.b.c=value` overrides, the model
+kwargs of `HoloDiffusionModel`, and the optimizer and gradient-clip settings
+of training.
 """
 from __future__ import annotations
 
+import logging
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -14,6 +16,8 @@ CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "con
 # top-level keys that may be set from the command line even when the YAML
 # lacks them (the reference's hydra struct mode knows them from its schema)
 _KNOWN_ROOT_KEYS = frozenset({"exp_dir", "seed"})
+
+logger = logging.getLogger(__name__)
 
 
 def _deep_update(base: Dict, upd: Dict) -> Dict:
@@ -103,8 +107,7 @@ def _check_class_type(value: str, supported: Tuple[str, ...], key: str) -> str:
 
 def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """`model_HoloDiffusionModel_args` -> kwargs of the port's
-    `HoloDiffusionModel` (the serving subset: grid, UNet, schedule, eval ray
-    sampling, renderer, implicit function)."""
+    `HoloDiffusionModel`."""
     mf = cfg.get("model_factory_ImplicitronModelFactory_args", {})
     _check_class_type(mf.get("model_class_type", "HoloDiffusionModel"),
                       ("HoloDiffusionModel",), "model_class_type")
@@ -114,14 +117,32 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
     raym = rend.get("raymarcher_EmissionAbsorptionRaymarcher_args", {})
     impl = m.get("implicit_function_HoloVoxelGridImplicitFunction_args", {})
     diff = m.get("diffusion_args", {})
+    fe = m.get("image_feature_extractor_ResNetFeatureExtractor_args", {})
+    vp = m.get("view_pooler_args", {})
+    agg_type = m.get(
+        "feature_aggregator_class_type",
+        vp.get("feature_aggregator_class_type", "AngleWeightedReductionFeatureAggregator"),
+    )
+    agg_args = dict(vp.get(f"feature_aggregator_{agg_type}_args",
+                           m.get(f"feature_aggregator_{agg_type}_args", {})) or {})
+    # reference-only switches that the reference itself forces off
+    for k in ("exclude_target_view", "exclude_target_view_mask_features",
+              "concatenate_output", "checkpointed_mlp"):
+        agg_args.pop(k, None)
+    if fe.get("pretrained", False):
+        logger.warning("image_feature_extractor pretrained=true: the repository holds no "
+                       "ImageNet weights; the extractor starts from its seeded initialisation")
 
     for key, default in (
         ("net_3d_class_type", "SimpleUnet3D"),
         ("raysampler_class_type", "AdaptiveRaySampler"),
         ("renderer_class_type", "HoloMultiPassEmissionAbsorptionRenderer"),
         ("implicit_function_class_type", "HoloVoxelGridImplicitFunction"),
+        ("image_feature_extractor_class_type", "ResNetFeatureExtractor"),
     ):
         _check_class_type(m.get(key, default), (default,), key)
+    _check_class_type(vp.get("view_sampler_args", {}).get("sampling_mode", "bilinear"),
+                      ("bilinear",), "view_sampler_args.sampling_mode")
     _check_class_type(rend.get("raymarcher_class_type", "EmissionAbsorptionRaymarcher"),
                       ("EmissionAbsorptionRaymarcher",), "raymarcher_class_type")
     if raym.get("blend_output", False):
@@ -153,6 +174,46 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
         density_relu=raym.get("density_relu", True),
         render_normals=impl.get("render_normals", False),
         render_mlp_args=impl.get("render_mlp_args", None),
+        # training
+        output_rasterized_mc=m.get("output_rasterized_mc", True),
+        mask_images=m.get("mask_images", True),
+        mask_depths=m.get("mask_depths", True),
+        mask_threshold=m.get("mask_threshold", 0.5),
+        bg_color=tuple(m.get("bg_color", raym.get("bg_color", (1.0, 1.0, 1.0)))),
+        n_train_target_views=m.get("n_train_target_views", 6),
+        sampling_mode_training=m.get("sampling_mode_training", "mask_sample"),
+        enable_bootstrap=m.get("enable_bootstrap", True),
+        bootstrap_prob=m.get("bootstrap_prob", 0.5),
+        loss_weights=m.get("loss_weights"),
+        n_pts_per_ray_training=rays.get("n_pts_per_ray_training", 64),
+        n_rays_per_image=rays.get("n_rays_per_image_sampled_from_mask", 1024),
+        # the raysampler key wins over the renderer's coarse-pass key
+        stratified_point_sampling_training=rays.get(
+            "stratified_point_sampling_training",
+            rend.get("stratified_sampling_coarse_training", True),
+        ),
+        n_pts_per_ray_fine_training=rend.get("n_pts_per_ray_fine_training", 16),
+        density_noise_std_train=rend.get("density_noise_std_train", 1.0),
+        # view pooling
+        view_pooler_enabled=m.get("view_pooler_enabled", True),
+        image_feature_extractor_args=dict(
+            name_arch=fe.get("name", "resnet34"),
+            stages=tuple(fe.get("stages", (1, 2, 3, 4))),
+            normalize_image=fe.get("normalize_image", True),
+            image_rescale=fe.get("image_rescale", 0.32),
+            first_max_pool=fe.get("first_max_pool", True),
+            proj_dim=fe.get("proj_dim", 16),
+            l2_norm=fe.get("l2_norm", True),
+            add_masks=fe.get("add_masks", True),
+            add_images=fe.get("add_images", True),
+            feature_rescale=fe.get("feature_rescale", 1.0),
+            dtype=fe.get("dtype", "float32"),
+        ),
+        view_pooler_args=dict(
+            aggregator_class_type=agg_type,
+            aggregator_args=agg_args,
+            masked_sampling=vp.get("view_sampler_args", {}).get("masked_sampling", False),
+        ),
     )
     if args["net_3d_enabled"]:
         net = m.get("net_3d_SimpleUnet3D_args", {})
@@ -175,3 +236,32 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
             model_var_type=diff.get("model_var_type", "FIXED_SMALL"),
         )
     return args
+
+
+def optimizer_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """`optimizer_factory_ImplicitronOptimizerFactory_args` and the training
+    loop's `clip_grad` -> the optimizer settings of `train.optimizer`: the
+    breed's kwargs (`make_optimizer`) and the LR policy's
+    (`make_lr_schedule`), as {"optimizer": ..., "schedule": ...}."""
+    o = cfg.get("optimizer_factory_ImplicitronOptimizerFactory_args", {})
+    t = cfg.get("training_loop_ImplicitronTrainingLoop_args", {})
+    return {
+        "optimizer": dict(
+            breed=o.get("breed", "Adam"),
+            lr=o.get("lr", 5e-5),
+            betas=tuple(o.get("betas", (0.9, 0.999))),
+            momentum=o.get("momentum", 0.9),
+            weight_decay=o.get("weight_decay", 0.0),
+            clip_grad=t.get("clip_grad", 0.0),
+            group_learning_rates=o.get("group_learning_rates", {}) or None,
+        ),
+        "schedule": dict(
+            lr_policy=o.get("lr_policy", "MultiStepLR"),
+            gamma=o.get("gamma", 0.1),
+            multistep_lr_milestones=tuple(o.get("multistep_lr_milestones", ())),
+            exponential_lr_step_size=o.get("exponential_lr_step_size", 250),
+            linear_exponential_lr_milestone=o.get("linear_exponential_lr_milestone", 200),
+            linear_exponential_start_gamma=o.get("linear_exponential_start_gamma", 0.1),
+            max_epochs=t.get("max_epochs", 1000),
+        ),
+    }

@@ -1,0 +1,30 @@
+"""FrameData, the batch the model takes (port of
+holo_diffusion_tpu/data/frame_data.py, non-compact batches): one scene's
+frames, channels-last images."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..geometry.cameras import PerspectiveCameras
+
+
+@dataclasses.dataclass
+class FrameData:
+    camera: PerspectiveCameras
+    image_rgb: Optional[torch.Tensor] = None  # (B, H, W, 3) in [0, 1]
+    fg_probability: Optional[torch.Tensor] = None  # (B, H, W, 1)
+    mask_crop: Optional[torch.Tensor] = None  # (B, H, W, 1)
+    depth_map: Optional[torch.Tensor] = None  # (B, H, W, 1)
+    sequence_id: Optional[torch.Tensor] = None  # (B,) int
+
+    @property
+    def batch_size(self) -> int:
+        return self.camera.batch_size
+
+    def to(self, device) -> "FrameData":
+        return FrameData(self.camera.to(device), *(
+            None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)[1:]))

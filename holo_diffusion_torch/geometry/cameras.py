@@ -1,5 +1,5 @@
 """Perspective cameras with PyTorch3D conventions (port of
-holo_diffusion_tpu/geometry/cameras.py, the subset the serving slice uses).
+holo_diffusion_tpu/geometry/cameras.py, the subset serving and training use).
 
   - world -> camera: x_cam = x_world @ R + T          (row vectors)
   - camera centre:   C = -T @ R^T
@@ -43,6 +43,29 @@ class PerspectiveCameras:
 def camera_centers(cameras: PerspectiveCameras) -> torch.Tensor:
     """C = -T @ R^T, (B, 3)."""
     return -torch.einsum("bi,bji->bj", cameras.T, cameras.R)
+
+
+def transform_points_world_to_camera(
+    cameras: PerspectiveCameras, points: torch.Tensor
+) -> torch.Tensor:
+    """x_cam = x_world @ R + T. points (B, ..., 3)."""
+    extra = points.ndim - 2
+    T = cameras.T.reshape(cameras.T.shape[0], *([1] * extra), 3)
+    return torch.einsum("b...i,bij->b...j", points, cameras.R) + T
+
+
+def project_points_ndc(
+    cameras: PerspectiveCameras, points_world: torch.Tensor, eps: float = 1e-8
+) -> torch.Tensor:
+    """World points (B, ..., 3) -> (x_ndc, y_ndc, z_cam), pytorch3d NDC
+    signs (+x left, +y up); |z| below eps is pushed out to eps."""
+    pts_cam = transform_points_world_to_camera(cameras, points_world)
+    z = pts_cam[..., 2:3]
+    safe = torch.where(z.abs() < eps, torch.where(z >= 0, eps, -eps), z)
+    extra = points_world.ndim - 2
+    f = cameras.focal_length.reshape(cameras.focal_length.shape[0], *([1] * extra), 2)
+    p = cameras.principal_point.reshape(cameras.principal_point.shape[0], *([1] * extra), 2)
+    return torch.cat([pts_cam[..., :2] * f * (1.0 / safe) + p, z], dim=-1)
 
 
 def transform_points_camera_to_world(

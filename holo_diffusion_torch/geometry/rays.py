@@ -1,6 +1,7 @@
-"""Ray sampling for evaluation renders (port of
-holo_diffusion_tpu/geometry/rays.py: full-grid rays, depth bounds, and the
-importance refinement of the multi-pass renderer).
+"""Ray sampling (port of holo_diffusion_tpu/geometry/rays.py): full-grid
+rays, mask-sampled training rays, depth bounds with optional stratified
+jitter, and the importance refinement of the multi-pass renderer. Random
+draws (uniforms) are arguments: the caller passes them in.
 
 Ray lengths parameterise z-depth (pytorch3d): direction = unproject(xy, 1)
 - camera centre, so origin + length * direction has z_cam == length.
@@ -56,12 +57,25 @@ def adaptive_depth_bounds(
     return torch.clamp(d - r, min=min_near), d + r
 
 
-def stratify_lengths(near: torch.Tensor, far: torch.Tensor, n_rays: int, n_pts: int) -> torch.Tensor:
-    """(B,) near/far -> (B, n_rays, n_pts) evenly spaced lengths (evaluation:
-    no jitter; the stratified draw belongs to the training slice)."""
+def stratify_lengths(
+    near: torch.Tensor,
+    far: torch.Tensor,
+    n_rays: int,
+    n_pts: int,
+    uniform: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B,) near/far -> (B, n_rays, n_pts) evenly spaced lengths; with
+    `uniform` (B, n_rays, n_pts) in [0, 1) each length is jittered inside its
+    bin (pytorch3d stratified sampling)."""
     t = torch.linspace(0.0, 1.0, n_pts, device=near.device, dtype=near.dtype)
     lengths = near[:, None, None] + t[None, None, :] * (far - near)[:, None, None]
-    return lengths.expand(near.shape[0], n_rays, n_pts)
+    lengths = lengths.expand(near.shape[0], n_rays, n_pts)
+    if uniform is not None:
+        mids = 0.5 * (lengths[..., 1:] + lengths[..., :-1])
+        upper = torch.cat([mids, lengths[..., -1:]], dim=-1)
+        lower = torch.cat([lengths[..., :1], mids], dim=-1)
+        lengths = lower + (upper - lower) * uniform
+    return lengths
 
 
 def pixel_grid_ndc(H: int, W: int, device=None) -> torch.Tensor:
@@ -89,13 +103,43 @@ def sample_rays_full_grid(
     n_pts_per_ray: int,
     scene_center=(0.0, 0.0, 0.0),
     scene_extent: float = 4.0,
+    length_uniform: Optional[torch.Tensor] = None,
 ) -> RayBundle:
-    """Dense H*W ray grid (evaluation, FULL_GRID mode)."""
+    """Dense H*W ray grid (FULL_GRID mode); stratified when `length_uniform`
+    (B, H*W, n_pts_per_ray) is given."""
     B = cameras.batch_size
     xys = pixel_grid_ndc(image_height, image_width, cameras.R.device).reshape(1, -1, 2)
     xys = xys.expand(B, image_height * image_width, 2)
     near, far = adaptive_depth_bounds(cameras, scene_center, scene_extent)
-    lengths = stratify_lengths(near, far, xys.shape[1], n_pts_per_ray)
+    lengths = stratify_lengths(near, far, xys.shape[1], n_pts_per_ray, length_uniform)
+    return _xys_to_ray_bundle(cameras, xys, lengths)
+
+
+def sample_rays_from_mask(
+    cameras: PerspectiveCameras,
+    mask: torch.Tensor,
+    n_pts_per_ray: int,
+    pixel_uniform: torch.Tensor,
+    length_uniform: Optional[torch.Tensor] = None,
+    scene_center=(0.0, 0.0, 0.0),
+    scene_extent: float = 4.0,
+) -> RayBundle:
+    """MASK_SAMPLE (training): n_rays pixels per image drawn with replacement
+    in proportion to `mask` (B, H, W), by inverse CDF of the uniforms
+    `pixel_uniform` (B, n_rays); an all-zero mask samples uniformly. The
+    coarse lengths are stratified when `length_uniform` (B, n_rays,
+    n_pts_per_ray) is given."""
+    B, H, W = mask.shape
+    n_rays = pixel_uniform.shape[1]
+    w = torch.clamp(mask.reshape(B, -1), min=0.0)
+    all_zero = torch.all(w <= 0, dim=-1, keepdim=True)
+    w = torch.where(all_zero, torch.ones_like(w), w)
+    cdf = torch.cumsum(w, dim=-1)
+    u = pixel_uniform * cdf[:, -1:]
+    pix = torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True), max=H * W - 1)
+    xys = pixel_grid_ndc(H, W, mask.device).reshape(-1, 2)[pix]
+    near, far = adaptive_depth_bounds(cameras, scene_center, scene_extent)
+    lengths = stratify_lengths(near, far, n_rays, n_pts_per_ray, length_uniform)
     return _xys_to_ray_bundle(cameras, xys, lengths)
 
 

@@ -1,6 +1,6 @@
 """Gaussian diffusion over a precomputed schedule (port of
 holo_diffusion_tpu/models/diffusion.py: schedules, q_sample, p_mean_variance,
-DDPM and DDIM sampling).
+DDPM and DDIM sampling, the uniform timestep sampler of training).
 
 The schedule is computed in float64 numpy and stored as float32 tensors, as
 in the reference. Random draws are injectable: `p_sample` takes `noise`, the
@@ -346,3 +346,10 @@ def ddim_sample_loop(
         tp = torch.full((shape[0],), tp_scalar, dtype=torch.long, device=device)
         x = ddim_sample(sched, model_fn, x, t, clip_denoised, t_prev=tp)["sample"]
     return x
+
+
+def uniform_sample_timesteps(sched: DiffusionSchedule, batch: int, draws, device):
+    """UniformSampler (timestep_sampler.py:67-73): t ~ U{0, ..., T-1} of
+    shape (batch,) from the draw `timesteps`, with unit importance weights."""
+    t = draws.randint("timesteps", sched.num_timesteps, (batch,), device)
+    return t, torch.ones((batch,), dtype=torch.float32, device=device)

@@ -71,7 +71,7 @@ def _pair(render_normals, chunk_size_grid=0):
     variables = jax.jit(lambda key, g, b: jm.init(key, g, b, method=JModel.render_rays))(
         jax.random.PRNGKey(1), jnp.asarray(grid), bundle)
     flat = {k: np.asarray(v) for k, v in flatten_dict(variables["params"], sep="/").items()}
-    tm = HoloDiffusionModel(**COMMON, **extra, render_normals=render_normals)
+    tm = HoloDiffusionModel(**COMMON, **extra, view_pooler_enabled=False, render_normals=render_normals)
     tm.load_state_dict(state_dict_from_jax(flat), strict=True)
     return jm, variables, tm, grid
 

@@ -58,7 +58,7 @@ def models():
     variables = jax.jit(lambda k, c, v: jm.init(k, camera=c, voxel_features=v, training=False))(
         jax.random.PRNGKey(0), cam[:1], jnp.zeros(SHAPE))
     flat = {k: np.asarray(v) for k, v in flatten_dict(variables["params"], sep="/").items()}
-    tm = HoloDiffusionModel(**TINY, net_3d_args=UNET)
+    tm = HoloDiffusionModel(**TINY, net_3d_args=UNET, view_pooler_enabled=False)
     tm.load_state_dict(state_dict_from_jax(flat), strict=True)
     tm.eval()
     return jm, variables, tm, cam
