@@ -7,26 +7,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
   build    compile the CUDA kernels with nvcc (build/holo_diffusion_torch/)
   kernels  each kernel against its plain PyTorch version at hydrant shapes:
            the decode forward (K1, K3) at a fine-pass render chunk, its
-           backward (K2) at a training step's fine pass; each kernel's
-           device time per launch (torch.profiler) beside the time of a
-           wrapper call (CUDA events)
+           backward (K2) at a training step's fine pass; the trilinear
+           sample (K4) at a render chunk (C 64, and C 257 as the collapsed
+           density samples it), its grid cotangent (K5) at a training fine
+           pass, its points cotangent (K6) at C 1 with the ones cotangent
+           (the normals) and at C 64, the one-hot-formulation sample (K7);
+           each kernel's device time per launch (torch.profiler) beside
+           the time of a wrapper call (CUDA events), and for K4-K7 the
+           time of `torch.nn.functional.grid_sample` computing the same
   sample   hydrant model (seeded random weights), 1000-step DDPM, B=1
   render   fly-around at 512^2 through the chunked renderer: 2 poses with
            normals (K3), 1 pose of the same model with normals off (K1)
   check    outputs finite and in range; a small render and two DDPM steps
            on the card against the same model on the CPU
+  serve_unfused  the same grid rendered by the unfused implicit function
+           (fuse_decode="off"): 2 poses with sampler "fused" (K4, normals
+           by K6), 1 with collapse_density="on" (K4 at C 257), 1 with
+           sampler "pallas" (K7)
+  check    the unfused frame against the fused frame of the same grid; the
+           unfused model on the card against the CPU
   train    hydrant training at full width on a synthetic batch of 33
            frames at 800^2: one warm-up step, then 5 timed steps of
-           `make_train_step` (pool, two-pass denoise, render, loss, Adam)
+           `make_train_step` (pool, two-pass denoise, render, loss, Adam);
+           then the unfused model (sampler "fused"): a warm-up and 3 steps
   check    one training step of a narrow model on the card and on the CPU
-           with the same injected draws: objective and gradients
+           with the same injected draws: objective and gradients, fused
+           and unfused
   profile  device time by kernel and the device's idle share over one
-           512^2 frame, over 10 DDPM steps and over one training step
+           512^2 frame (fused and unfused), over 10 DDPM steps and over
+           one training step (fused and unfused)
   kernels summary, the card's name and power limit, and the result line.
-Two main paths, each with the launch counters zeroed right before it and
+Four main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
-K3) and training (the 5 timed steps, which must launch K3 and K2).
-Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
+K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
+steps, which must launch K3 and K2) and unfused training (K4, K5 and K6,
+no K1/K2/K3). Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import copy
 import json
@@ -59,9 +74,25 @@ TRAIN_GRAD_TOL = 2e-3
 # card vs CPU, end to end: cuDNN/cuBLAS and CPU kernels sum in other orders;
 # a 2-pass render compounds it through the importance resampling
 RENDER_TOL = 2e-3
-SAMPLE_TOL = 1e-3
+DDPM_TOL = 1e-3
 
 HYDRANT_MODEL = "model_factory_ImplicitronModelFactory_args.model_HoloDiffusionModel_args"
+SAMPLER_KEY = f"{HYDRANT_MODEL}.implicit_function_HoloVoxelGridImplicitFunction_args.sampler"
+# sampling kernels vs plain versions: 8 float32 products summed in another
+# order (forward, absolute); cotangents relative to each one's largest
+# magnitude (K5 sums ~100 points per voxel with atomics in no fixed order)
+SAMPLE_TOL = 1e-4
+SAMPLE_COT_TOL = 1e-4
+# the unfused implicit function against the fused one: the same function,
+# with the density net layer by layer or collapsed into one affine map. On
+# the same points every output within 2e-3. Over a whole 512^2 frame the
+# images and masks too; depths and normals may exceed it on at most this
+# share of the pixels: the second pass resamples its points from the first
+# pass's weights, so rounding moves fine samples, and the normal of a
+# sample that moves across a voxel plane jumps (the trilinear field's
+# gradient is discontinuous there)
+UNFUSED_VS_FUSED_TOL = 2e-3
+UNFUSED_FRAME_SHARE = 1e-4
 
 
 def emit(obj):
@@ -117,25 +148,30 @@ def decode_bwd_cost(n_points, n_rays, grid_shape, hidden, pe_dim):
     return n_bytes, n_points * (fwd + bwd), n_bytes + 4 * 2 * 8 * C * n_points
 
 
-def device_ms_per_launch(fn, name_part, iters=20):
+def device_ms_per_launch(fn, name_part, iters=20, attempts=3):
     """Device time per launch of the kernel whose name contains `name_part`,
-    from torch.profiler over `iters` calls of `fn` (after one warm-up)."""
+    from torch.profiler over `iters` calls of `fn` (after one warm-up). The
+    profiler may drop device events; a window that did not record all
+    `iters` launches is discarded and profiled again, up to `attempts`
+    times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name_part in e.key and e.self_device_time_total > 0]
-    count = sum(e.count for e in rows)
-    if count != iters:
-        raise AssertionError(f"profiled {count} launches of {name_part!r}, expected {iters}")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / count
+    counts = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name_part in e.key and e.self_device_time_total > 0]
+        counts.append(sum(e.count for e in rows))
+        if counts[-1] == iters:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / iters
+    raise AssertionError(f"profiled {counts} launches of {name_part!r} in {attempts} windows, expected {iters}")
 
 
 def unet_conv_flops(model, dev):
@@ -280,12 +316,286 @@ def kernel_bwd_phase(model, grid, A, c, Wr, br, results):
     results["fused_decode_bwd"] = rec
 
 
-def profile_phase(model, v, dev, train_step_fn):
+def sample_cost(kind, n, C, grid_cells, active_corners):
+    """(bytes, flops) a sampling kernel must move and do: each input read
+    once, each output written once; one multiply-add per channel of each
+    corner that lies inside the grid (`active_corners`, counted from this
+    run's points), plus for d_points the cotangent's product and the three
+    slope terms per corner."""
+    if kind == "fwd":  # points, grid -> samples
+        return 4 * (3 * n + grid_cells * C + n * C), 2 * active_corners * C
+    if kind == "dgrid":  # points, cotangent -> grid cotangent
+        return 4 * (3 * n + n * C + grid_cells * C), 2 * active_corners * C
+    ones = kind == "dpoints_ones"  # points, [cotangent], grid -> (n, 3)
+    n_bytes = 4 * (3 * n + (0 if ones else n * C) + grid_cells * C + 3 * n)
+    return n_bytes, active_corners * ((1 if ones else 2) * C + 2 * 3)
+
+
+def grid_sample_yardstick(grid, points, extent, kind, cot):
+    """`torch.nn.functional.grid_sample` (5-D input, trilinear,
+    align_corners=True, zero padding) set up to compute what a sampling
+    kernel computes: the sample ("fwd"), its input gradient ("dgrid") or
+    its coordinate gradient ("dpoints"). Coordinates 2 i / (n - 1) - 1 are
+    prepared here, outside the timed call. Returns (call, result in the
+    kernel's layout)."""
+    import torch
+    import torch.nn.functional as F
+
+    D, H, W, C = grid.shape
+    n = points.shape[0]
+    vs = extent / D
+    idx = points / vs + torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0, (D - 1) / 2.0], device=points.device)
+    scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1), 2.0 / (D - 1)], device=points.device)
+    coords = (idx * scale - 1.0).reshape(1, 1, 1, n, 3)
+    inp = grid.permute(3, 0, 1, 2)[None].contiguous()
+    if kind == "fwd":
+        def call():
+            return F.grid_sample(inp, coords, mode="bilinear", padding_mode="zeros", align_corners=True)
+        return call, lambda: call().reshape(C, n).t()
+    gout = (torch.ones((n, C), device=grid.device) if cot is None else cot).t().reshape(1, C, 1, 1, n).contiguous()
+    if kind == "dgrid":
+        inp.requires_grad_(True)
+        out = F.grid_sample(inp, coords, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+        def call():
+            return torch.autograd.grad(out, inp, gout, retain_graph=True)[0]
+        return call, lambda: call()[0].permute(1, 2, 3, 0)
+    coords.requires_grad_(True)
+    out = F.grid_sample(inp, coords, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    def call():
+        return torch.autograd.grad(out, coords, gout, retain_graph=True)[0]
+    # d coords / d world = 2 / (n - 1) / voxel size per axis
+    return call, lambda: call().reshape(n, 3) * scale / vs
+
+
+def sample_kernel_phase(model, results):
+    """K4-K7 against their plain versions on the card, at the shapes the
+    unfused paths give them: a fine render chunk (640 rays x 128 points)
+    for the samples and the normals' field gradient, a training step's fine
+    pass (3 x 1024 rays x 128 points) for the cotangents; beside each, the
+    plain version's time and grid_sample's."""
+    import torch
+
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.ops.voxel import hat_corners
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    D, C, extent = model.resol, model.feature_size, model.volume_extent
+    hidden = model.implicit_function.render_mlp.dnet_hidden_dim
+    n_chunk = 640 * (model.n_pts_per_ray_evaluation + model.n_pts_per_ray_fine_evaluation)
+    n_train = 3 * model.n_rays_per_image * (model.n_pts_per_ray_training + model.n_pts_per_ray_fine_training)
+    half = 0.6 * extent  # points inside and outside the grid
+    grids = {c: torch.tanh(torch.randn((D, D, D, c), generator=gen, device=dev)) for c in (1, C, hidden + 1)}
+    pts = {n: (torch.rand((n, 3), generator=gen, device=dev) * 2 - 1) * half for n in (n_chunk, n_train)}
+    cots = {n: torch.randn((n, C), generator=gen, device=dev) for n in (n_chunk, n_train)}
+    # entry point -> (kernel call, plain call, kernel name, TPU kernel)
+    ops = {
+        "kron_sample_fwd": (
+            lambda g, p, cot: ks.kron_sample_fwd(g, p, extent),
+            lambda g, p, cot: ks.kron_sample_fwd_reference(g, p, extent),
+            "kron_sample_fwd_kernel", "holo_diffusion_tpu/ops/pallas/kron_sample.py:83"),
+        "kron_sample_dgrid": (
+            lambda g, p, cot: ks.kron_sample_dgrid(p, cot, g.shape, extent),
+            lambda g, p, cot: ks.kron_sample_dgrid_reference(p, cot, g.shape, extent),
+            "kron_sample_dgrid_kernel", "holo_diffusion_tpu/ops/pallas/kron_sample.py:100"),
+        "kron_sample_dpoints": (
+            lambda g, p, cot: ks.kron_sample_dpoints(g, p, cot, extent),
+            lambda g, p, cot: ks.kron_sample_dpoints_reference(g, p, cot, extent),
+            "kron_sample_dpoints_kernel", "holo_diffusion_tpu/ops/pallas/kron_sample.py:121"),
+        "trilinear_sample_onehot": (
+            lambda g, p, cot: fr.trilinear_sample_pallas(g, p, extent),
+            lambda g, p, cot: fr.trilinear_sample_onehot_reference(g, p, extent),
+            "trilinear_sample_onehot_kernel", "holo_diffusion_tpu/ops/pallas/fused_render.py:69"),
+    }
+    cases = [  # (case, entry point, cost kind, channels, points, random cotangent)
+        ("kron_sample_fwd", "kron_sample_fwd", "fwd", C, n_chunk, False),
+        ("c257", "kron_sample_fwd", "fwd", hidden + 1, n_chunk, False),
+        ("kron_sample_dgrid", "kron_sample_dgrid", "dgrid", C, n_train, True),
+        ("kron_sample_dpoints", "kron_sample_dpoints", "dpoints_ones", 1, n_chunk, False),
+        ("c64", "kron_sample_dpoints", "dpoints", C, n_train, True),
+        ("trilinear_sample_onehot", "trilinear_sample_onehot", "fwd", C, n_chunk, False),
+    ]
+    for case, name, kind, c, n, random_cot in cases:
+        fn, plain, kernel_name, replaces = ops[name]
+        args = (grids[c], pts[n], cots[n] if random_cot else None)
+        with torch.no_grad():
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            del got
+            wrapper_ms = cuda_time_ms(lambda: fn(*args))
+            ms = device_ms_per_launch(lambda: fn(*args), kernel_name)
+            plain_ms = cuda_time_ms(lambda: plain(*args), iters=5)
+            _, hats, _ = hat_corners(args[1], D, D, D, extent)
+            active = int((hats.prod(-1) != 0).sum())
+        lib_kind = kind.replace("_ones", "")
+        lib_call, lib_result = grid_sample_yardstick(args[0], args[1], extent, lib_kind, args[2])
+        lib_diff = (lib_result() - want).abs()
+        lib_err = float(lib_diff.max())
+        # grid_sample rounds its own coordinates: a point within an ulp of a
+        # voxel plane can fall in the neighbouring cell, where the field's
+        # gradient differs, so the coordinate gradient disagrees at a few
+        # points (the entries beyond 1e-3 of the scale, counted here)
+        lib_beyond = int((lib_diff > 1e-3 * scale).sum())
+        library_ms = cuda_time_ms(lib_call)
+        del want
+        n_bytes, flops = sample_cost(kind, n, c, D ** 3, active)
+        bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+        tol = SAMPLE_TOL if kind == "fwd" else SAMPLE_COT_TOL * scale
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "holo_diffusion_torch/csrc/" + ("fused_render.cu" if "onehot" in name else "kron_sample.cu"),
+            "replaces": replaces,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms > flops_ms else "operations",
+            "library_ms": library_ms,
+        }
+        emit({"phase": "kernels", "case": case, **rec, "wrapper_ms": wrapper_ms, "points": n, "channels": c,
+              "active_corners": active, "bytes": n_bytes, "gflop": flops / 1e9, "scale": scale, "tol": tol,
+              "library": f"torch.nn.functional.grid_sample ({lib_kind})", "library_max_abs_err": lib_err,
+              "library_entries_beyond_1e-3_of_scale": lib_beyond})
+        if not err <= tol:
+            raise AssertionError(f"{name} ({case}): max_abs_err {err} > {tol}")
+        if case == name:
+            results[name] = rec
+        else:  # a second shape of the same entry point
+            results[name][case] = {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+
+
+def unfused_models(model, build_model, dev):
+    """The hydrant model's weights in the unfused implicit function
+    (fuse_decode="off"): sampler "fused"; collapse_density="on"; sampler
+    "pallas"."""
+    out = {}
+    for label, sampler, extra in (("fused_sampler", "fused", {}), ("collapse", "fused", {"collapse_density": "on"}),
+                                  ("pallas_sampler", "pallas", {})):
+        m = build_model("hydrant", [f"{SAMPLER_KEY}={sampler}"], fuse_decode="off", **extra)
+        m.load_state_dict(model.state_dict())
+        out[label] = m.to(dev).eval()
+    return out
+
+
+def launch_counts_all():
+    from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+
+    return {**fd.launch_counts(), **ks.launch_counts(), **fr.launch_counts()}
+
+
+def reset_launch_counts_all():
+    from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+
+    for mod in (fd, ks, fr):
+        mod.reset_launch_counts()
+
+
+def serve_unfused_phase(models, v, out_dir, dev, results):
+    """The unfused serving main path on the sampled grid `v`: 2 poses with
+    sampler "fused" (K4, normals by K6), 1 with collapse_density="on" (K4
+    at C 257), 1 with sampler "pallas" (K7); none may launch K1/K2/K3."""
+    import torch
+
+    from holo_diffusion_torch.utils.flyaround import render_flyaround
+
+    reset_launch_counts_all()
+    for label, poses in (("fused_sampler", 2), ("collapse", 1), ("pallas_sampler", 1)):
+        m = models[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_flyaround(m, os.path.join(out_dir, f"unfused_{label}"), n_flyaround_poses=poses,
+                         voxel_features=v, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        emit({"phase": "serve_unfused", "variant": label, "poses": poses,
+              "size": [m.render_image_height, m.render_image_width], "s_per_frame": dt / poses})
+    counts = launch_counts_all()
+    emit({"phase": "main_path", "path": "serve_unfused", "launches": counts})
+    launched = ("kron_sample_fwd", "kron_sample_dpoints", "trilinear_sample_onehot")
+    expect_launches(counts, "unfused serving", some=launched,
+                    none=("fused_decode_fwd", "fused_decode_fwd_normals", "fused_decode_bwd", "kron_sample_dgrid"))
+    for name in launched:
+        results[name]["launches"] = counts[name]
+
+
+def check_unfused_phase(model, unfused, v, dev):
+    """The unfused model (sampler "fused") against the fused model of the
+    same weights and grid, both on the card: the implicit functions on the
+    same points (the coarse points of 640 rays of a 512^2 frame), and the
+    whole 512^2 frame; then the unfused model on the card against the CPU
+    at 48 px."""
+    import torch
+
+    from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.render_eval import render_image_chunked
+    from holo_diffusion_torch.utils.flyaround import CANONICAL_CO3D_UP_AXIS, simple_360_cameras
+
+    cams = simple_360_cameras(2, up=CANONICAL_CO3D_UP_AXIS)
+    tol = UNFUSED_VS_FUSED_TOL
+    with torch.no_grad():
+        bundle = model.full_grid_rays(cams[:1].to(dev))
+        rays = bundle.slice_rays(slice(bundle.origins.shape[1] // 2, bundle.origins.shape[1] // 2 + 640))
+        pts = rays.origins[..., None, :] + rays.directions[..., None, :] * rays.lengths[..., None]
+        fused_out = model.implicit_function(v[0], pts, rays.directions)
+        unfused_out = unfused.implicit_function(v[0], pts, rays.directions)
+        same_points = {k: float((a - b).abs().max()) for k, a, b in zip(
+            ("densities", "rgb"), fused_out[:2], unfused_out[:2])}
+        # the normals' source, before normalising: K3's field-gradient lanes
+        # against K6's field gradient
+        mlp = model.implicit_function.render_mlp
+        A, c = mlp.density_affine()
+        Wr, br = mlp.radiance_linear()
+        g1 = torch.einsum("dhwc,c->dhw", v[0], A[:, -1])
+        pe = mlp.encode_dirs(rays.directions / rays.directions.norm(dim=-1, keepdim=True))
+        k3 = fd.fused_sample_decode(v[0], A, c, Wr, br, pts, pe, model.volume_extent, mlp.dnet_hidden_dim, g1=g1)[2]
+        k6 = ks.trilinear_point_gradient(g1[..., None], pts, model.volume_extent)
+        grad_scale = float(k3.abs().max())
+        same_points["field_gradient_rel"] = float((k3 - k6).abs().max()) / grad_scale
+
+        a = render_image_chunked(unfused, cams[0], v[0], device=dev)
+        b = render_image_chunked(model, cams[0], v[0], device=dev)
+        frame = {}
+        for k in b:
+            diff = (a[k] - b[k]).abs().amax(dim=-1)
+            frame[k] = {"max": float(diff.max()), "share_above_tol": float((diff > tol).float().mean()),
+                        "p99_99": float(torch.quantile(diff.flatten().float(), 0.9999))}
+        small = dict(image_height=48, image_width=48)
+        c48 = render_image_chunked(unfused, cams[1], v[0], device=dev, **small)
+        d48 = render_image_chunked(copy.deepcopy(unfused).cpu(), cams[1], v[0].cpu(), device="cpu", **small)
+        vs_cpu = {k: float((c48[k].cpu() - d48[k]).abs().max()) for k in d48}
+    finite = all(bool(torch.isfinite(x).all()) for x in a.values())
+    emit({"phase": "check", "variant": "unfused", "same_points_vs_fused": same_points, "points": pts.numel() // 3,
+          "frame_512px_vs_fused": frame, "card_vs_cpu_48px": vs_cpu, "finite": finite,
+          "tol": {"vs_fused": tol, "frame_share": UNFUSED_FRAME_SHARE, "vs_cpu": RENDER_TOL}})
+    if not finite or set(a) != set(b):
+        raise AssertionError("unfused frame: non-finite values or other streams than the fused frame")
+    if max(same_points.values()) > tol:
+        raise AssertionError(f"unfused implicit function disagrees with the fused one: {same_points}")
+    if any(frame[k]["max"] > tol for k in ("images_render", "masks_render")) or \
+            any(f["share_above_tol"] > UNFUSED_FRAME_SHARE for f in frame.values()):
+        raise AssertionError(f"unfused frame disagrees with the fused frame: {frame}")
+    if max(vs_cpu.values()) > RENDER_TOL:
+        raise AssertionError(f"unfused frame: card and CPU disagree: {vs_cpu}")
+
+
+def profile_phase(model, unfused, v, dev, train_step_fn, unfused_train_step_fn):
     """Where the time goes: device time by kernel, and the device's idle
     share (1 - device busy / host wall time of an unprofiled run of the same
-    work), over one 512^2 fly-around frame, over 10 DDPM steps and over one
-    hydrant training step (`train_step_fn`), with the decode kernels' share
-    of the busy time."""
+    work), over one 512^2 fly-around frame of the fused and of the unfused
+    (sampler "fused") model, over 10 DDPM steps and over one hydrant
+    training step of each (`train_step_fn`, `unfused_train_step_fn`), with
+    the port's kernels' share of the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -297,9 +607,11 @@ def profile_phase(model, v, dev, train_step_fn):
     cam = simple_360_cameras(1)
     windows = {
         "render_frame": lambda: render_image_chunked(model, cam, v[0], device=dev),
+        "render_frame_unfused": lambda: render_image_chunked(unfused, cam, v[0], device=dev),
         "ddpm_10_steps": lambda: sample_random_voxel_features(
             model, torch.Generator(device=dev).manual_seed(2), max_iter=10, device=dev),
         "train_step": train_step_fn,
+        "train_step_unfused": unfused_train_step_fn,
     }
     for label, fn in windows.items():
         fn()
@@ -318,35 +630,40 @@ def profile_phase(model, v, dev, train_step_fn):
         )
         busy_ms = sum(r[1] for r in rows)
         decode = {}
-        for part in ("fused_decode_kernel", "fused_decode_bwd_kernel"):
+        for part in ("fused_decode_kernel", "fused_decode_bwd_kernel", "kron_sample_fwd_kernel",
+                     "kron_sample_dgrid_kernel", "kron_sample_dpoints_kernel", "trilinear_sample_onehot_kernel"):
             ms = sum(r[1] for r in rows if part in r[0])
             if ms > 0:
                 decode[part] = {"ms": ms, "count": sum(r[2] for r in rows if part in r[0]),
                                 "share_of_busy": ms / busy_ms}
         emit({"phase": "profile", "window": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
               "idle_share": 1.0 - busy_ms / wall_ms, "device_launches": sum(r[2] for r in rows),
-              "decode_kernels": decode,
+              "port_kernels": decode,
               "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:10]]})
 
 
-def train_phase(model, cfg, dev, results, steps=5):
-    """Hydrant training at full width: the config's optimizer, a synthetic
-    batch of the config's size (33 frames at 800^2), one warm-up step, then
-    `steps` timed steps of `make_train_step`: the training main path, with
-    the launch counters zeroed right before it and read right after.
-    Returns a function that runs one more step (for the profile)."""
-    import torch
-
-    from holo_diffusion_torch.config import optimizer_args_from_config
+def synthetic_batch(cfg, dev):
+    """A synthetic batch of the config's size: 33 frames at 800^2."""
     from holo_diffusion_torch.data.synthetic import make_synthetic_scene
-    from holo_diffusion_torch.ops import fused_decode as fd
-    from holo_diffusion_torch.parallel.train_step import TrainState, make_train_step
-    from holo_diffusion_torch.train.optimizer import make_lr_schedule, make_optimizer
 
     data = cfg["data_source_ImplicitronDataSource_args"]
     n_frames = data["data_loader_map_provider_SequenceDataLoaderMapProvider_args"]["batch_size"]
     size = data["dataset_map_provider_JsonIndexDatasetMapProviderV2_args"]["dataset_JsonIndexDataset_args"]["image_height"]
-    batch = make_synthetic_scene(n_views=n_frames, image_size=size, radius=2.0, dist=8.0, seed=0, device=dev)
+    return make_synthetic_scene(n_views=n_frames, image_size=size, radius=2.0, dist=8.0, seed=0, device=dev)
+
+
+def train_phase(model, cfg, batch, dev, label, steps):
+    """Hydrant training at full width: the config's optimizer, one warm-up
+    step, then `steps` timed steps of `make_train_step`: a training main
+    path, with the launch counters zeroed right before it and read right
+    after. Returns (a function that runs one more step, for the profile;
+    the launch counts)."""
+    import torch
+
+    from holo_diffusion_torch.config import optimizer_args_from_config
+    from holo_diffusion_torch.parallel.train_step import TrainState, make_train_step
+    from holo_diffusion_torch.train.optimizer import make_lr_schedule, make_optimizer
+
     oa = optimizer_args_from_config(cfg)
     opt = make_optimizer(model.named_parameters(), **oa["optimizer"],
                          schedule=make_lr_schedule(oa["optimizer"]["lr"], **oa["schedule"]))
@@ -362,7 +679,7 @@ def train_phase(model, cfg, dev, results, steps=5):
     warm_s = time.perf_counter() - t0
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    fd.reset_launch_counts()
+    reset_launch_counts_all()
     secs, objectives = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -370,35 +687,46 @@ def train_phase(model, cfg, dev, results, steps=5):
         state, metrics = step(state, batch, gen)
         objectives.append(metrics["objective"].item())
         secs.append(time.perf_counter() - t0)
-    counts = fd.launch_counts()
+    counts = launch_counts_all()
     changed = {n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])}
     modules = {n.split(".")[0] for n, _ in model.named_parameters()}
-    emit({"phase": "train", "frames": n_frames, "image_size": size, "rays": 3 * model.n_rays_per_image,
+    emit({"phase": "train", "variant": label, "frames": batch.image_rgb.shape[0],
+          "image_size": batch.image_rgb.shape[1], "rays": 3 * model.n_rays_per_image,
           "params": sum(p.numel() for p in model.parameters()), "warmup_s": warm_s,
           "warmup_objective": warm_obj, "s_per_step": secs, "median_s_per_step": sorted(secs)[len(secs) // 2],
           "objectives": objectives, "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "params_changed": len(changed), "params_total": len(before), "lr": opt.optimizer.param_groups[0]["lr"],
           "launches": counts})
-    emit({"phase": "main_path", "path": "train", "launches": counts})
+    emit({"phase": "main_path", "path": label, "launches": counts})
     if not all(math.isfinite(o) for o in objectives + [warm_obj]):
-        raise AssertionError(f"non-finite training objective: {objectives}")
+        raise AssertionError(f"{label}: non-finite training objective: {objectives}")
     if {n.split(".")[0] for n in changed} != modules:
-        raise AssertionError(f"parameters of {sorted(modules - {n.split('.')[0] for n in changed})} did not change")
-    for name in ("fused_decode_fwd_normals", "fused_decode_bwd"):
-        if counts[name] != 2 * steps:
-            raise AssertionError(f"kernel {name}: {counts[name]} launches on the training path, expected {2 * steps}")
-    results["fused_decode_bwd"]["launches"] = counts["fused_decode_bwd"]
-    results["fused_decode_fwd_normals"]["train_launches"] = counts["fused_decode_fwd_normals"]
-    return lambda: step(state, batch, gen)
+        raise AssertionError(f"{label}: parameters of {sorted(modules - {n.split('.')[0] for n in changed})} "
+                             "did not change")
+    return (lambda: step(state, batch, gen)), counts
 
 
-def train_check_phase(dev):
+def expect_launches(counts, label, exactly=None, some=(), none=()):
+    """Fail unless each kernel of `exactly` ({name: n}) was launched n times,
+    each of `some` at least once and each of `none` never."""
+    for name, n in (exactly or {}).items():
+        if counts[name] != n:
+            raise AssertionError(f"kernel {name}: {counts[name]} launches on the {label} path, expected {n}")
+    for name in some:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    for name in none:
+        if counts[name] != 0:
+            raise AssertionError(f"kernel {name} was launched on the {label} path")
+
+
+def train_check_phase(dev, variant, **model_args):
     """One training step of a narrow model (C 32, UNet 32 channels, resnet18
-    stages 1-2, 2 x 128 rays) on the card and on the CPU with the same
-    weights and the same injected draws: the objective and the gradients
-    of the UNet's last conv, the pooled-feature mapper, the density net's
-    first layer and the extractor's stem (each relative to its largest
-    magnitude)."""
+    stages 1-2, 2 x 128 rays; `model_args` such as fuse_decode="off") on the
+    card and on the CPU with the same weights and the same injected draws:
+    the objective and the gradients of the UNet's last conv, the
+    pooled-feature mapper, the density net's first layer and the
+    extractor's stem (each relative to its largest magnitude)."""
     import numpy as np
     import torch
 
@@ -413,11 +741,11 @@ def train_check_phase(dev):
         image_feature_extractor_args=dict(name_arch="resnet18", stages=(1, 2), proj_dim=8, image_rescale=0.5),
         view_pooler_args=dict(aggregator_class_type="MLPMeanFeatureAggregator",
                               aggregator_args=dict(n_hidden=32, dim_out=32)),
-        render_mlp_args=dict(dnet_hidden_dim=64, rnet_hidden_dim=16),
+        render_mlp_args=dict(dnet_hidden_dim=64, rnet_hidden_dim=16), **model_args,
     )
     cpu_model = init_weights(HoloDiffusionModel(**toy), seed=1)
     card_model = copy.deepcopy(cpu_model).to(dev)
-    scene = make_synthetic_scene(n_views=6, image_size=48, seed=2)
+    scene = make_synthetic_scene(n_views=6, image_size=48, seed=2, device="cpu")
     rs = np.random.RandomState(3)
     B, N, P, F = 2, 128, 16, 16
     draws = {
@@ -427,6 +755,7 @@ def train_check_phase(dev):
         "refine_u_1": rs.rand(B, N, F), "density_noise_1": rs.randn(B, N, P + F),
     }
     objs = {}
+    reset_launch_counts_all()
     for label, m, b in (("card", card_model, scene.to(dev)), ("cpu", cpu_model, scene)):
         preds = m(camera=b.camera, image_rgb=b.image_rgb, fg_probability=b.fg_probability,
                   mask_crop=b.mask_crop, depth_map=b.depth_map, training=True, draws=draws)
@@ -445,11 +774,12 @@ def train_check_phase(dev):
     largest = max(scale.values())
     worst = max((n for n in rel if scale[n] > 1e-6 * largest), key=rel.get)
     obj_err = abs(objs["card"] - objs["cpu"])
-    emit({"phase": "check", "variant": "train_card_vs_cpu", "objective": objs, "objective_abs_err": obj_err,
+    emit({"phase": "check", "variant": variant, "card_launches": launch_counts_all(), "objective": objs,
+          "objective_abs_err": obj_err,
           "grad_rel_errs": {n: rel[n] for n in gated}, "worst_leaf_above_1e-6_of_largest_grad": [worst, rel[worst]],
           "tol": {"objective": TRAIN_OBJ_TOL, "grad_rel": TRAIN_GRAD_TOL}})
     if obj_err > TRAIN_OBJ_TOL or max(rel[n] for n in gated) > TRAIN_GRAD_TOL:
-        raise AssertionError("training step: card and CPU disagree beyond tolerance")
+        raise AssertionError(f"{variant}: card and CPU disagree beyond tolerance")
 
 
 def main():
@@ -470,6 +800,8 @@ def main():
     from holo_diffusion_torch.device import set_full_precision
     from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
     from holo_diffusion_torch.render_eval import render_image_chunked
     from holo_diffusion_torch.sampling import sample_random_voxel_features
     from holo_diffusion_torch.utils.flyaround import (
@@ -504,11 +836,12 @@ def main():
 
     results = {}
     kernel_phase(model, results)
+    sample_kernel_phase(model, results)
 
     conv_flops, n_convs = unet_conv_flops(model, dev)
 
     # ---- main path: sample, then render (launch counts read after)
-    fd.reset_launch_counts()
+    reset_launch_counts_all()
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -534,11 +867,11 @@ def main():
         emit({"phase": "render", "variant": label, "poses": poses,
               "size": [m.render_image_height, m.render_image_width],
               "s_per_frame": dt / poses, "streams": sorted(paths)})
-    counts = fd.launch_counts()
+    counts = launch_counts_all()
     emit({"phase": "main_path", "path": "serve", "launches": counts})
+    expect_launches(counts, "serving", some=("fused_decode_fwd", "fused_decode_fwd_normals"),
+                    none=("fused_decode_bwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     for name in ("fused_decode_fwd", "fused_decode_fwd_normals"):
-        if counts[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the serving path")
         results[name]["launches"] = counts[name]
 
     # ---- check: outputs in range, card against the CPU on a small input
@@ -574,18 +907,42 @@ def main():
         s_cpu = sample_random_voxel_features(cpu_model, max_iter=2, noise=x_T, step_noise=steps_noise, device="cpu")
         sample_err = float((s_gpu.cpu() - s_cpu).abs().max())
     emit({"phase": "check", "card_vs_cpu": {"render_48px": render_err, "ddpm_2_steps": sample_err},
-          "tol": {"render": RENDER_TOL, "sample": SAMPLE_TOL}})
-    if max(render_err.values()) > RENDER_TOL or sample_err > SAMPLE_TOL:
+          "tol": {"render": RENDER_TOL, "sample": DDPM_TOL}})
+    if max(render_err.values()) > RENDER_TOL or sample_err > DDPM_TOL:
         raise AssertionError("card and CPU disagree beyond tolerance")
 
-    # ---- training main path, then the card against the CPU
-    train_step_fn = train_phase(model, load_config("hydrant"), dev, results)
-    train_check_phase(dev)
+    # ---- unfused serving main path, then its checks
+    unfused = unfused_models(model, build_model, dev)
+    serve_unfused_phase(unfused, v, out_dir, dev, results)
+    unfused = unfused["fused_sampler"]
+    check_unfused_phase(model, unfused, v, dev)
+
+    # ---- training main paths, fused then unfused, then the card against the CPU
+    cfg = load_config("hydrant")
+    batch = synthetic_batch(cfg, dev)
+    steps = 5
+    train_step_fn, counts = train_phase(model, cfg, batch, dev, "train", steps)
+    expect_launches(counts, "training", exactly={"fused_decode_fwd_normals": 2 * steps, "fused_decode_bwd": 2 * steps},
+                    none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["fused_decode_bwd"]["launches"] = counts["fused_decode_bwd"]
+    results["fused_decode_fwd_normals"]["train_launches"] = counts["fused_decode_fwd_normals"]
+    steps = 3
+    unfused_step_fn, counts = train_phase(unfused, cfg, batch, dev, "train_unfused", steps)
+    # per step and render pass: K4 forward, K6 for the normals, K5 backward
+    expect_launches(counts, "unfused training",
+                    exactly={name: 2 * steps for name in ks.ENTRY_POINTS},
+                    none=(*fd.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["kron_sample_dgrid"]["launches"] = counts["kron_sample_dgrid"]
+    for name in ("kron_sample_fwd", "kron_sample_dpoints"):
+        results[name]["train_launches"] = counts[name]
+    train_check_phase(dev, "train_card_vs_cpu")
+    train_check_phase(dev, "train_unfused_card_vs_cpu", sampler="fused", fuse_decode="off")
 
     model.eval()
-    profile_phase(model, v, dev, train_step_fn)
+    unfused.eval()
+    profile_phase(model, unfused, v, dev, train_step_fn, unfused_step_fn)
 
-    emit({"kernels": [results[n] for n in fd.ENTRY_POINTS]})
+    emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -25,9 +25,13 @@ from .utils.flyaround import render_flyaround
 from .weights import init_weights, load_weights
 
 
-def build_model(config: str, overrides: Optional[List[str]] = None, render_size=None) -> HoloDiffusionModel:
+def build_model(
+    config: str, overrides: Optional[List[str]] = None, render_size=None, **model_args
+) -> HoloDiffusionModel:
+    """The config's model; `model_args` (such as `fuse_decode`, which no
+    config key sets) override its arguments."""
     cfg = load_config(config, overrides)
-    args = model_args_from_config(cfg)
+    args = {**model_args_from_config(cfg), **model_args}
     if render_size is not None:
         args["render_image_height"], args["render_image_width"] = (int(v) for v in render_size)
     return HoloDiffusionModel(**args)

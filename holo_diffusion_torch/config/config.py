@@ -174,6 +174,8 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
         density_relu=raym.get("density_relu", True),
         render_normals=impl.get("render_normals", False),
         render_mlp_args=impl.get("render_mlp_args", None),
+        # fuse_decode and collapse_density are model arguments, not config keys
+        sampler=impl.get("sampler", "packed"),
         # training
         output_rasterized_mc=m.get("output_rasterized_mc", True),
         mask_images=m.get("mask_images", True),

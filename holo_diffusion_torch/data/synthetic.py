@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..geometry.cameras import PerspectiveCameras, look_at_view_transform, transform_points_world_to_camera
 from ..geometry.rays import sample_rays_full_grid
 from .frame_data import FrameData
@@ -21,7 +22,8 @@ def make_synthetic_scene(
     device=None,
 ) -> FrameData:
     """`n_views` views on a circle of azimuths, elevations drawn from `seed`
-    (numpy, the JAX package's draws), made on `device`."""
+    (numpy, the JAX package's draws), made on `device`: the card unless
+    `device="cpu"` (device.resolve_device)."""
     rng = np.random.RandomState(seed)
     azim = np.linspace(0, 360, n_views, endpoint=False)
     elev = rng.uniform(-30, 45, n_views)
@@ -29,7 +31,7 @@ def make_synthetic_scene(
     cams = PerspectiveCameras(
         R=R, T=T, focal_length=torch.full((n_views, 2), float(focal)),
         principal_point=torch.zeros((n_views, 2)),
-    ).to(device)
+    ).to(resolve_device(device))
     rb = sample_rays_full_grid(cams, image_size, image_size, 2, scene_extent=radius)
     o = rb.origins
     d = rb.directions / torch.linalg.norm(rb.directions, dim=-1, keepdim=True)

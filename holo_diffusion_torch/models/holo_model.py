@@ -80,6 +80,10 @@ class HoloDiffusionModel(nn.Module):
         view_pooler_args: Optional[dict] = None,
         render_normals: bool = False,
         render_mlp_args: Optional[dict] = None,
+        sampler: str = "auto",
+        sampler_precision: str = "default",
+        collapse_density: str = "auto",
+        fuse_decode: str = "auto",
         loss_weights: Optional[Dict[str, float]] = None,
     ):
         super().__init__()
@@ -151,6 +155,10 @@ class HoloDiffusionModel(nn.Module):
             n_hidden=feature_size,
             render_normals=render_normals,
             render_mlp_args=render_mlp_args,
+            sampler=sampler,
+            sampler_precision=sampler_precision,
+            collapse_density=collapse_density,
+            fuse_decode=fuse_decode,
         )
         self._schedule = None
 

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..geometry.harmonic import HarmonicEmbedding
-from .mlp import MLPWithInputSkips
+from .mlp import _HIDDEN_ACTS, MLPWithInputSkips
 
 COLOUR_DIMS = 3
 
@@ -73,12 +73,26 @@ class RenderMLP(nn.Module):
     def forward(self, features: torch.Tensor, view_dirs: torch.Tensor):
         """Layer-by-layer decode: features (..., input_dims), view_dirs (..., 3)
         unit vectors -> (densities (..., 1), rgb (..., 3))."""
-        out = self._density_net(self._feats_encoder(features))
+        return self._decode_tail(self._density_net(self._feats_encoder(features)), view_dirs)
+
+    def _decode_tail(self, out: torch.Tensor, view_dirs: torch.Tensor):
+        """Everything after the density net: split [hidden | density], run
+        the radiance head -> (densities (..., 1), rgb (..., 3))."""
         mlp_feats, densities = out[..., :-1], out[..., -1:]
         radiance = self._radiance_net(
             torch.cat([mlp_feats, self._dir_encoder(view_dirs)], dim=-1)
         )
         return densities, torch.sigmoid(radiance)
+
+    def density(self, features: torch.Tensor) -> torch.Tensor:
+        """The density head alone (..., 1): what the normals differentiate
+        when the density net is not collapsible."""
+        return self._density_net(self._feats_encoder(features))[..., -1:]
+
+    def decode_from_preactivation(self, pre: torch.Tensor, view_dirs: torch.Tensor):
+        """Decode from the pre-activations `s @ A + c` of `density_affine`:
+        the density net's output activation, then the radiance head."""
+        return self._decode_tail(_HIDDEN_ACTS[self._density_net.hidden_activation](pre), view_dirs)
 
     @property
     def density_net_is_collapsible(self) -> bool:

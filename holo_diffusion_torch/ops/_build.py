@@ -23,7 +23,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("fused_decode", "fused_decode_bwd")
+SOURCES = ("fused_decode", "fused_decode_bwd", "kron_sample", "fused_render")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .kron_sample import kron_sample_dpoints_reference
 from .voxel import continuous_indices, sample_voxel_grid_world
 
 NEG_SLOPE = 0.2  # torch.nn.LeakyReLU(0.2)
@@ -39,45 +40,6 @@ def reset_launch_counts() -> None:
 
 def _lrelu(x):
     return F.leaky_relu(x, NEG_SLOPE)
-
-
-def _hat_grad(d):
-    # d/di relu(1 - |i - q|) = -sign(i - q) inside the hat, 0 outside
-    return torch.where(d.abs() < 1.0, -torch.sign(d), torch.zeros_like(d))
-
-
-def trilinear_gradient(
-    field: torch.Tensor, points_world: torch.Tensor, extent: float
-) -> torch.Tensor:
-    """Analytic spatial gradient of the scalar trilinear field (D, H, W) at
-    world points (..., 3) -> (..., 3); zero outside the grid."""
-    D, H, W = field.shape
-    ix, iy, iz = continuous_indices(points_world, D, H, W, extent)
-    x0, y0, z0 = torch.floor(ix), torch.floor(iy), torch.floor(iz)
-    flat = field.reshape(-1)
-    g = torch.zeros(points_world.shape, dtype=field.dtype, device=field.device)
-    for dz in (0, 1):
-        for dy in (0, 1):
-            for dx in (0, 1):
-                xi, yi, zi = x0 + dx, y0 + dy, z0 + dz
-                ex, ey, ez = ix - xi, iy - yi, iz - zi
-                hx, hy, hz = [torch.clamp(1.0 - e.abs(), min=0.0) for e in (ex, ey, ez)]
-                inside = (
-                    (xi >= 0) & (xi <= W - 1)
-                    & (yi >= 0) & (yi <= H - 1)
-                    & (zi >= 0) & (zi <= D - 1)
-                )
-                lin = (
-                    (zi.clamp(0, D - 1) * H + yi.clamp(0, H - 1)) * W
-                    + xi.clamp(0, W - 1)
-                ).long()
-                v = flat[lin] * inside
-                g = g + torch.stack(
-                    [hz * hy * _hat_grad(ex), hz * _hat_grad(ey) * hx,
-                     _hat_grad(ez) * hy * hx],
-                    dim=-1,
-                ) * v[..., None]
-    return g * (D / extent)
 
 
 def fused_sample_decode_reference(
@@ -103,7 +65,9 @@ def fused_sample_decode_reference(
     densities = h_all[..., hidden:hidden + 1]
     if g1 is None:
         return densities, rgb
-    return densities, rgb, trilinear_gradient(g1, points, extent)
+    # the field's spatial gradient: K6's plain version at C = 1, ones cotangent
+    grads = kron_sample_dpoints_reference(g1[..., None], points.reshape(-1, 3), None, extent)
+    return densities, rgb, grads.reshape(points.shape)
 
 
 def _dlrelu(x):

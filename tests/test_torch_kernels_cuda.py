@@ -1,5 +1,7 @@
 """The CUDA kernels of holo_diffusion_torch (the fused decode forward, K1/K3,
-and its backward) against their plain PyTorch versions, on the card. Every test here is marked `cuda` and skips without a
+and its backward K2; the trilinear sample K4 with its grid and points
+cotangents K5/K6; the one-hot-formulation sample K7) against their plain
+PyTorch versions, on the card. Every test here is marked `cuda` and skips without a
 CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs where JAX is not installed, without the suite's conftest:
 
@@ -10,6 +12,8 @@ import pytest
 import torch
 
 from holo_diffusion_torch.ops import fused_decode as fd
+from holo_diffusion_torch.ops import fused_render as fr
+from holo_diffusion_torch.ops import kron_sample as ks
 
 EXTENT, PE_DIM = 4.0, 27
 SHAPES = {
@@ -139,3 +143,92 @@ def test_autograd_function_launches_forward_and_backward_kernels():
     assert after["fused_decode_bwd"] == before["fused_decode_bwd"] + 1
     want = fd.fused_sample_decode_bwd_reference(grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], g)
     _assert_cotangents_close([p.grad for p in params], want, 1e-3)
+
+
+# ---- the sampling kernels: every channel count the unfused path uses
+# (1: the normals' field; 64: hydrant; 257: the collapsed density affine)
+SAMPLE_SHAPES = {"C1": (16, 1, 5000), "C8": (8, 8, 3000), "C64": (16, 64, 20000), "C257": (16, 257, 4000)}
+
+
+def _sample_inputs(seed, D, C, n, dev):
+    g = torch.Generator().manual_seed(seed)
+    grid = torch.tanh(torch.randn((D, D, D, C), generator=g))
+    # voxel centres span +-0.5 * EXTENT * (D - 1) / D: points inside and beyond
+    pts = (torch.rand((n, 3), generator=g) * 2 - 1) * 0.6 * EXTENT
+    cot = torch.randn((n, C), generator=g)
+    return grid.to(dev), pts.to(dev), cot.to(dev)
+
+
+def _assert_rel_close(got, want, rel, name):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= rel * scale, f"{name}: max|diff| {err:.3e} > {rel} x {scale:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SAMPLE_SHAPES))
+def test_sampling_kernels_match_plain_on_card(shape):
+    """K4 and K7 within 1e-5 of their plain versions (8 float32 products
+    summed in another order); K5 and K6 within 1e-4 of each cotangent's
+    scale (K5 sums ~100 points per voxel with atomics in no fixed order)."""
+    dev = _device()
+    D, C, n = SAMPLE_SHAPES[shape]
+    grid, pts, cot = _sample_inputs(21, D, C, n, dev)
+    before_ks, before_fr = ks.launch_counts(), fr.launch_counts()
+    out = ks.kron_sample_fwd(grid, pts, EXTENT)
+    onehot = fr.trilinear_sample_pallas(grid, pts, EXTENT)
+    d_grid = ks.kron_sample_dgrid(pts, cot, grid.shape, EXTENT)
+    d_pts = ks.kron_sample_dpoints(grid, pts, cot, EXTENT)
+    field_grad = ks.kron_sample_dpoints(grid, pts, None, EXTENT)
+    torch.cuda.synchronize()
+    after = ks.launch_counts()
+    assert after["kron_sample_fwd"] == before_ks["kron_sample_fwd"] + 1
+    assert after["kron_sample_dgrid"] == before_ks["kron_sample_dgrid"] + 1
+    assert after["kron_sample_dpoints"] == before_ks["kron_sample_dpoints"] + 2
+    assert fr.launch_counts()["trilinear_sample_onehot"] == before_fr["trilinear_sample_onehot"] + 1
+    torch.testing.assert_close(out, ks.kron_sample_fwd_reference(grid, pts, EXTENT), rtol=0, atol=1e-5)
+    torch.testing.assert_close(onehot, fr.trilinear_sample_onehot_reference(grid, pts, EXTENT), rtol=0, atol=1e-5)
+    _assert_rel_close(d_grid, ks.kron_sample_dgrid_reference(pts, cot, grid.shape, EXTENT), 1e-4, "d_grid")
+    _assert_rel_close(d_pts, ks.kron_sample_dpoints_reference(grid, pts, cot, EXTENT), 1e-4, "d_points")
+    _assert_rel_close(field_grad, ks.kron_sample_dpoints_reference(grid, pts, None, EXTENT), 1e-4, "field")
+
+
+@pytest.mark.cuda
+def test_kron_sample_autograd_launches_only_the_cotangents_asked_for():
+    """`trilinear_sample_fused` on the card: a grid-only backward launches
+    K5 and no K6; `trilinear_point_gradient` one K6; gradients as the
+    plain versions'."""
+    dev = _device()
+    grid, pts, cot = _sample_inputs(22, 16, 64, 4096, dev)
+    g = grid.clone().requires_grad_(True)
+    before = ks.launch_counts()
+    (ks.trilinear_sample_fused(g, pts.reshape(64, 64, 3), EXTENT) * cot.reshape(64, 64, 64)).sum().backward()
+    ks.trilinear_point_gradient(grid[..., :1], pts, EXTENT)
+    torch.cuda.synchronize()
+    after = ks.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "kron_sample_fwd": 1, "kron_sample_dgrid": 1, "kron_sample_dpoints": 1}
+    _assert_rel_close(g.grad, ks.kron_sample_dgrid_reference(pts, cot, grid.shape, EXTENT), 1e-4, "d_grid")
+
+
+@pytest.mark.cuda
+def test_sampling_kernels_take_empty_and_strided_input():
+    dev = _device()
+    grid, pts, cot = _sample_inputs(23, 8, 8, 100, dev)
+    before = ks.launch_counts()
+    assert ks.kron_sample_fwd(grid, pts[:0], EXTENT).shape == (0, 8)
+    assert ks.launch_counts() == before
+    strided = pts.t().contiguous().t()
+    assert not strided.is_contiguous()
+    torch.testing.assert_close(ks.kron_sample_fwd(grid, strided, EXTENT), ks.kron_sample_fwd(grid, pts, EXTENT),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_synthetic_scene_defaults_to_the_card():
+    """`make_synthetic_scene` with no device builds its batch on the card."""
+    _device()
+    from holo_diffusion_torch.data.synthetic import make_synthetic_scene
+
+    scene = make_synthetic_scene(n_views=2, image_size=8)
+    assert scene.image_rgb.device.type == "cuda" and scene.camera.R.device.type == "cuda"

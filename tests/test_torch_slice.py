@@ -23,6 +23,7 @@ from holo_diffusion_tpu.render_eval import render_image_chunked as j_render_chun
 from holo_diffusion_tpu.utils.flyaround import simple_360_cameras as j_simple_360
 from holo_diffusion_torch import cli
 from holo_diffusion_torch.config import apply_dotted_overrides, load_config, model_args_from_config
+from holo_diffusion_torch.data.synthetic import make_synthetic_scene
 from holo_diffusion_torch.geometry.cameras import PerspectiveCameras
 from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
 from holo_diffusion_torch.ops import fused_decode as fd
@@ -134,6 +135,7 @@ def test_entry_points_raise_without_cuda(models, tmp_path, monkeypatch):
         lambda: render_image_chunked(tm, cam, grid),
         lambda: render_flyaround(tm, str(tmp_path), n_flyaround_poses=1, voxel_features=grid[None]),
         lambda: cli.generate_samples_main(["config=base", f"output_directory={tmp_path}"]),
+        lambda: make_synthetic_scene(n_views=2, image_size=8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

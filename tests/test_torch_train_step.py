@@ -167,7 +167,7 @@ def test_train_step_on_a_synthetic_scene():
     """Two steps of `make_train_step` at the toy width with hydrant's random
     settings (stratified rays, density noise) from a generator: finite
     objectives, every parameter group moved, no kernel launched."""
-    scene = make_synthetic_scene(n_views=4, image_size=24, seed=1)
+    scene = make_synthetic_scene(n_views=4, image_size=24, seed=1, device="cpu")
     tm = init_weights(HoloDiffusionModel(**{**TOY, "stratified_point_sampling_training": True,
                                             "density_noise_std_train": 1.0, "n_rays_per_image": 32}), seed=3)
     before = {n: p.detach().clone() for n, p in tm.named_parameters()}
