@@ -6,7 +6,8 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   build    compile the CUDA kernels with nvcc (build/holo_diffusion_torch/)
   kernels  each kernel against its plain PyTorch version at hydrant shapes:
-           the decode forward (K1, K3) at a fine-pass render chunk, its
+           the decode forward (K1, K3) at both render chunks (640 rays x 128
+           points after the fine pass, x 64 in the coarse pass), its
            backward (K2) at a training step's fine pass; the trilinear
            sample (K4) at a render chunk (C 64, and C 257 as the collapsed
            density samples it), its grid cotangent (K5) at a training fine
@@ -51,9 +52,11 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 CUDA-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 CUDA-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# dense TF32 tensor-core peak (NVIDIA data sheet, H100 SXM)
+PEAK_TF32_FLOPS = 495e12
 # kernel vs plain version: float32 with another summation order over dot
 # products of <= 283 terms of O(1) values
 KERNEL_TOL = 1e-4
@@ -197,9 +200,21 @@ def unet_conv_flops(model, dev):
     return sum(flops), len(convs)
 
 
+def decode_bounds(n_points, n_rays, grid_shape, hidden, pe_dim, normals):
+    """(bytes ms, float32 CUDA-core ops ms, 3 x TF32 tensor-core ops ms) of
+    the fused decode: the affine's 2 C (hidden + 1) FLOP per point counted 3
+    times at the TF32 peak (the split that keeps float32 accuracy), the rest
+    at the float32 peak."""
+    n_bytes, flops = decode_cost(n_points, n_rays, grid_shape, hidden, pe_dim, normals)
+    affine = n_points * 2 * grid_shape[-1] * (hidden + 1)
+    return (1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS,
+            1e3 * (3 * affine / PEAK_TF32_FLOPS + (flops - affine) / PEAK_F32_FLOPS))
+
+
 def kernel_phase(model, results):
-    """K1 and K3 at a fine-pass chunk of the hydrant render (640 rays x 128
-    points) against the plain version on the same card."""
+    """K1 and K3 at both render chunks of the hydrant render (640 rays x 128
+    points after the fine pass, x 64 in the coarse pass; the main path
+    alternates them) against the plain version on the same card."""
     import torch
 
     from holo_diffusion_torch.ops import fused_decode as fd
@@ -208,12 +223,14 @@ def kernel_phase(model, results):
     mlp = fn.render_mlp
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    R, P = 640, 128
+    R = 640
     D, C = model.resol, model.feature_size
     grid = torch.tanh(torch.randn((D, D, D, C), generator=gen, device=dev))
     extent = model.volume_extent
     half = 0.6 * extent  # points inside and outside the grid
-    points = (torch.rand((R, P, 3), generator=gen, device=dev) * 2 - 1) * half
+    chunks = {"fine": model.n_pts_per_ray_evaluation + model.n_pts_per_ray_fine_evaluation,
+              "coarse": model.n_pts_per_ray_evaluation}
+    all_points = {k: (torch.rand((R, P, 3), generator=gen, device=dev) * 2 - 1) * half for k, P in chunks.items()}
     dirs = torch.randn((R, 3), generator=gen, device=dev)
     with torch.no_grad():
         A, c = mlp.density_affine()
@@ -225,35 +242,43 @@ def kernel_phase(model, results):
         ("fused_decode_fwd", False, "holo_diffusion_tpu/ops/pallas/fused_decode.py:122"),
         ("fused_decode_fwd_normals", True, "holo_diffusion_tpu/ops/pallas/fused_decode.py:144"),
     ):
-        args = (grid, A, c, Wr, br, points, pe, extent, hidden)
-        kw = {"g1": g1} if normals else {}
-        with torch.no_grad():
-            out = fd.fused_sample_decode(*args, **kw)
-            ref = fd.fused_sample_decode_reference(*args, **kw)
-            torch.cuda.synchronize()
-            errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
-            wrapper_ms = cuda_time_ms(lambda: fd.fused_sample_decode(*args, **kw))
-            ms = device_ms_per_launch(lambda: fd.fused_sample_decode(*args, **kw), "fused_decode_kernel")
-            plain_ms = cuda_time_ms(lambda: fd.fused_sample_decode_reference(*args, **kw))
-        n_bytes, flops = decode_cost(R * P, R, grid.shape, hidden, pe.shape[-1], normals)
-        bytes_ms, flops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
-        rec = {
-            "name": name,
-            "route": "cuda",
-            "source": "holo_diffusion_torch/csrc/fused_decode.cu",
-            "replaces": replaces,
-            "max_abs_err": max(errs),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms > flops_ms else "operations",
-            "library_ms": None,  # no single PyTorch call computes this function
-        }
-        emit({"phase": "kernels", **rec, "wrapper_ms": wrapper_ms, "points": R * P,
-              "lane_errs": dict(zip(("density", "rgb", "normals"), errs)), "tol": KERNEL_TOL})
-        if not max(errs) <= KERNEL_TOL:
-            raise AssertionError(f"{name}: max_abs_err {max(errs)} > {KERNEL_TOL}")
-        results[name] = rec
+        for chunk, points in all_points.items():
+            args = (grid, A, c, Wr, br, points, pe, extent, hidden)
+            kw = {"g1": g1} if normals else {}
+            with torch.no_grad():
+                out = fd.fused_sample_decode(*args, **kw)
+                ref = fd.fused_sample_decode_reference(*args, **kw)
+                torch.cuda.synchronize()
+                errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+                wrapper_ms = cuda_time_ms(lambda: fd.fused_sample_decode(*args, **kw))
+                ms = device_ms_per_launch(lambda: fd.fused_sample_decode(*args, **kw), "fused_decode_kernel")
+                plain_ms = cuda_time_ms(lambda: fd.fused_sample_decode_reference(*args, **kw))
+            n = points.numel() // 3
+            bytes_ms, f32_ms, tf32x3_ms = decode_bounds(n, R, grid.shape, hidden, pe.shape[-1], normals)
+            # the least time at float32 accuracy: the cheaper of the two ways
+            # to do the operations, against the bytes
+            ops_ms = min(f32_ms, tf32x3_ms)
+            rec = {
+                "name": name,
+                "route": "cuda",
+                "source": "holo_diffusion_torch/csrc/fused_decode.cu",
+                "replaces": replaces,
+                "max_abs_err": max(errs),
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                "library_ms": None,  # no single PyTorch call computes this function
+            }
+            emit({"phase": "kernels", "case": chunk, **rec, "wrapper_ms": wrapper_ms, "points": n,
+                  "bound_f32_cuda_cores_ms": max(bytes_ms, f32_ms), "bound_tf32x3_tensor_cores_ms": max(bytes_ms, tf32x3_ms),
+                  "lane_errs": dict(zip(("density", "rgb", "normals"), errs)), "tol": KERNEL_TOL})
+            if not max(errs) <= KERNEL_TOL:
+                raise AssertionError(f"{name} ({chunk}): max_abs_err {max(errs)} > {KERNEL_TOL}")
+            if chunk == "fine":
+                results[name] = rec
+            else:  # the second shape of the same entry point
+                results[name][chunk] = {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
     kernel_bwd_phase(model, grid, A, c, Wr, br, results)
 
 
@@ -461,7 +486,7 @@ def sample_kernel_phase(model, results):
         emit({"phase": "kernels", "case": case, **rec, "wrapper_ms": wrapper_ms, "points": n, "channels": c,
               "active_corners": active, "bytes": n_bytes, "gflop": flops / 1e9, "scale": scale, "tol": tol,
               "library": f"torch.nn.functional.grid_sample ({lib_kind})", "library_max_abs_err": lib_err,
-              "library_entries_beyond_1e-3_of_scale": lib_beyond})
+              "library_entries_beyond_1e-3_of_scale": lib_beyond, "ms_below_library_ms": ms < library_ms})
         if not err <= tol:
             raise AssertionError(f"{name} ({case}): max_abs_err {err} > {tol}")
         if case == name:
@@ -488,7 +513,7 @@ def launch_counts_all():
     from holo_diffusion_torch.ops import fused_render as fr
     from holo_diffusion_torch.ops import kron_sample as ks
 
-    return {**fd.launch_counts(), **ks.launch_counts(), **fr.launch_counts()}
+    return {**fd.launch_counts(), **ks.launch_counts(), **ks.launch_counts_by_channels(), **fr.launch_counts()}
 
 
 def reset_launch_counts_all():
@@ -820,8 +845,10 @@ def main():
     # ---- build
     t0 = time.perf_counter()
     compiled = _build.build()
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+    # each kernel's (mangled) name, then its registers and spills
+    ptxas = {name: [ln.strip().split("'")[1] if "Compiling entry" in ln else ln.strip()
+                    for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
              for name in _build.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "compiled": compiled,
           "ptxas": ptxas})

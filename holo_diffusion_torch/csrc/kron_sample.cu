@@ -23,17 +23,24 @@
 // What the design does about it: the TPU kernel is a Kronecker-factored
 // matrix product with the grid cotangent accumulated in VMEM across
 // sequential grid steps. Hopper has a gather and its blocks run in no order,
-// so each point is handled by a group of G lanes (G = the smallest power of
-// two >= C, at most a warp) that computes the point's 8 corners once and
-// walks the channels with consecutive lanes on consecutive channels of one
-// corner: coalesced reads (K4, K6), writes (K4) and atomics (K5), for any C.
-// Channels are read one float at a time, so C = 257 needs no alignment. K5
-// scatters with atomicAdd into a zeroed grid (the sum order changes from
-// run to run: not bit-reproducible). K6 reduces each lane's partial sums
-// over the group with warp shuffles. Per-block shared-memory partials of
-// the grid cotangent are later work.
+// so each point is handled by a group of lanes that computes the point's 8
+// corners and walks its channels.
+//   * K4, K5 (and K7 in fused_render.cu): G = the smallest power of two >= C,
+//     at most a warp, with consecutive lanes on consecutive channels of one
+//     corner: coalesced reads (K4), writes (K4) and atomics (K5), for any C,
+//     one float at a time. Every lane recomputes the point's three divisions
+//     and 8 corners for C / G channels (2 at C 64): bound by instructions,
+//     at 6-11 % of the bytes bound. K5 scatters with atomicAdd into a zeroed
+//     grid (the sum order changes from run to run: not bit-reproducible).
+//   * K6 has fewer lanes with more channels each (about 16 per lane: G = 4
+//     at C 64, 1 at C 1; `dpoints_layout` in ops/kron_sample.py), 32-bit cells,
+//     float4 channel units where C % 4 == 0 and a scalar loop otherwise
+//     (C 257). Each lane computes the corners once, loads its cotangent
+//     channels once into registers and walks the 8 corners with them, then
+//     the group reduces its three sums in log2(G) shuffle rounds.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -52,12 +59,10 @@ __device__ __forceinline__ float hat_slope(float e) {
   return fabsf(e) < 1.f ? (e > 0.f ? -1.f : (e < 0.f ? 1.f : 0.f)) : 0.f;
 }
 
-// The 8 corners of point i in (dz, dy, dx) order: flat cell, hat weight
-// (0 outside the grid) and, with SLOPES, the weights of d/dix, d/diy, d/diz.
-template <bool SLOPES>
+// The 8 corners of point i in (dz, dy, dx) order: flat cell and hat weight
+// (0 outside the grid).
 __device__ __forceinline__ void corners(const float* points, long long i,
-                                        const Geometry& g, long long* cell,
-                                        float* w, float (*gw)[3]) {
+                                        const Geometry& g, long long* cell, float* w) {
   const float ix = points[3 * i + 0] / g.voxel_size + 0.5f * (g.W - 1);
   const float iy = points[3 * i + 1] / g.voxel_size + 0.5f * (g.H - 1);
   const float iz = points[3 * i + 2] / g.voxel_size + 0.5f * (g.D - 1);
@@ -67,17 +72,11 @@ __device__ __forceinline__ void corners(const float* points, long long i,
     const float qx = x0 + (k & 1), qy = y0 + ((k >> 1) & 1), qz = z0 + (k >> 2);
     const bool inside = qx >= 0.f && qx <= g.W - 1 && qy >= 0.f &&
                         qy <= g.H - 1 && qz >= 0.f && qz <= g.D - 1;
-    const float ex = ix - qx, ey = iy - qy, ez = iz - qz;
-    const float hx = hat(ex), hy = hat(ey), hz = hat(ez);
+    const float hx = hat(ix - qx), hy = hat(iy - qy), hz = hat(iz - qz);
     w[k] = inside ? hx * hy * hz : 0.f;
     cell[k] = inside ? (static_cast<long long>(qz) * g.H + static_cast<long long>(qy)) * g.W +
                            static_cast<long long>(qx)
                      : 0;
-    if (SLOPES) {
-      gw[k][0] = inside ? hat_slope(ex) * hy * hz : 0.f;
-      gw[k][1] = inside ? hx * hat_slope(ey) * hz : 0.f;
-      gw[k][2] = inside ? hx * hy * hat_slope(ez) : 0.f;
-    }
   }
 }
 
@@ -90,7 +89,7 @@ kron_sample_fwd_kernel(const float* __restrict__ points, const float* __restrict
   if (i >= g.n) return;
   long long cell[8];
   float w[8];
-  corners<false>(points, i, g, cell, w, nullptr);
+  corners(points, i, g, cell, w);
   for (int c = lane; c < g.C; c += 1 << g.group_log2) {
     float acc = 0.f;
 #pragma unroll
@@ -109,7 +108,7 @@ kron_sample_dgrid_kernel(const float* __restrict__ points, const float* __restri
   if (i >= g.n) return;
   long long cell[8];
   float w[8];
-  corners<false>(points, i, g, cell, w, nullptr);
+  corners(points, i, g, cell, w);
   for (int c = lane; c < g.C; c += 1 << g.group_log2) {
     const float v = __ldg(cot + i * g.C + c);
 #pragma unroll
@@ -118,12 +117,44 @@ kron_sample_dgrid_kernel(const float* __restrict__ points, const float* __restri
   }
 }
 
-// cot == nullptr: the all-ones cotangent (the spatial gradient of the field
-// summed over channels). Every thread of the launch reaches the shuffles.
+// K6: a group of G = 1 << group_log2 lanes per point (ops/kron_sample.py
+// `dpoints_layout`: about 16 channels per lane, G = 4 at C 64, 1 at C 1). Each
+// lane computes the point's corners once, with 32-bit cells, then walks its
+// channels in batches of BATCH units: VEC = 4 takes float4 units (unit u is
+// channels 4u..4u+3, lane l owns units l, l + G, ...), VEC = 1 single
+// channels (any C, e.g. 257). A batch's cotangent units are loaded into
+// registers once and used for all 8 corners; BATCH is 1 where a lane owns
+// at most one unit (C 1), which keeps the register count, and so the
+// blocks resident per SM, of a thread-per-point launch. cot == nullptr: the all-ones
+// cotangent (the spatial gradient of the field summed over channels). The
+// three sums reduce over the group in log2(G) shuffle rounds; every thread
+// of the launch reaches them.
+template <int VEC>
+struct Unit;
+template <>
+struct Unit<4> {
+  using T = float4;
+  static __device__ __forceinline__ float dot(const T& a, const T& b) {
+    return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+  }
+  static __device__ __forceinline__ float sum(const T& a) { return (a.x + a.y) + (a.z + a.w); }
+  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+template <>
+struct Unit<1> {
+  using T = float;
+  static __device__ __forceinline__ float dot(const T& a, const T& b) { return a * b; }
+  static __device__ __forceinline__ float sum(const T& a) { return a; }
+  static __device__ __forceinline__ T zero() { return 0.f; }
+};
+
+template <int VEC, int BATCH>
 __global__ void __launch_bounds__(kThreads)
 kron_sample_dpoints_kernel(const float* __restrict__ points, const float* __restrict__ cot,
                            const float* __restrict__ grid, float* __restrict__ d_points,
                            const Geometry g, const float inv_vs) {
+  using U = Unit<VEC>;
+  using T = typename U::T;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long i = t >> g.group_log2;
   const int lanes = 1 << g.group_log2;
@@ -131,23 +162,56 @@ kron_sample_dpoints_kernel(const float* __restrict__ points, const float* __rest
   const bool valid = i < g.n;
   float ax = 0.f, ay = 0.f, az = 0.f;
   if (valid) {
-    long long cell[8];
-    float w[8], gw[8][3];
-    corners<true>(points, i, g, cell, w, gw);
+    // the point's 8 corners, once per lane: flat cell (32-bit) and the
+    // weights of d/dix, d/diy, d/diz (0 outside the grid)
+    const float ix = points[3 * i + 0] / g.voxel_size + 0.5f * (g.W - 1);
+    const float iy = points[3 * i + 1] / g.voxel_size + 0.5f * (g.H - 1);
+    const float iz = points[3 * i + 2] / g.voxel_size + 0.5f * (g.D - 1);
+    const float x0 = floorf(ix), y0 = floorf(iy), z0 = floorf(iz);
+    int cell[8];
+    float gw[8][3];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      if (gw[k][0] == 0.f && gw[k][1] == 0.f && gw[k][2] == 0.f) continue;
-      const float* row = grid + cell[k] * g.C;
-      float v = 0.f;
-      if (cot == nullptr) {
-        for (int c = lane; c < g.C; c += lanes) v += __ldg(row + c);
-      } else {
-        for (int c = lane; c < g.C; c += lanes)
-          v = fmaf(__ldg(cot + i * g.C + c), __ldg(row + c), v);
+      const float qx = x0 + (k & 1), qy = y0 + ((k >> 1) & 1), qz = z0 + (k >> 2);
+      const bool inside = qx >= 0.f && qx <= g.W - 1 && qy >= 0.f &&
+                          qy <= g.H - 1 && qz >= 0.f && qz <= g.D - 1;
+      const float ex = ix - qx, ey = iy - qy, ez = iz - qz;
+      const float hx = hat(ex), hy = hat(ey), hz = hat(ez);
+      cell[k] = inside ? (static_cast<int>(qz) * g.H + static_cast<int>(qy)) * g.W +
+                             static_cast<int>(qx)
+                       : 0;
+      gw[k][0] = inside ? hat_slope(ex) * hy * hz : 0.f;
+      gw[k][1] = inside ? hx * hat_slope(ey) * hz : 0.f;
+      gw[k][2] = inside ? hx * hy * hat_slope(ez) : 0.f;
+    }
+    const int units = g.C / VEC;
+    const T* grid_u = reinterpret_cast<const T*>(grid);
+    const T* cot_u = cot == nullptr ? nullptr : reinterpret_cast<const T*>(cot) + i * units;
+    for (int u0 = lane; u0 < units; u0 += BATCH * lanes) {
+      T c[BATCH];  // this batch's cotangent units, read once
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        const int u = u0 + b * lanes;
+        c[b] = (cot != nullptr && u < units) ? __ldg(cot_u + u) : U::zero();
       }
-      ax = fmaf(gw[k][0], v, ax);
-      ay = fmaf(gw[k][1], v, ay);
-      az = fmaf(gw[k][2], v, az);
+      // no branch on the corner: one outside the grid reads cell 0 with
+      // zero slopes, so every corner's loads can be in flight at once
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const T* row = grid_u + cell[k] * units;
+        float v = 0.f;
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+          const int u = u0 + b * lanes;
+          if (u < units) {
+            const T x = __ldg(row + u);
+            v += cot == nullptr ? U::sum(x) : U::dot(c[b], x);
+          }
+        }
+        ax = fmaf(gw[k][0], v, ax);
+        ay = fmaf(gw[k][1], v, ay);
+        az = fmaf(gw[k][2], v, az);
+      }
     }
   }
   for (int off = lanes >> 1; off > 0; off >>= 1) {
@@ -209,8 +273,24 @@ extern "C" int kron_sample_dpoints(const float* points, const float* cot, const 
                                    void* stream) {
   const Geometry g = make_geometry(n, D, H, W, C, group_log2, voxel_size);
   if (!valid(g)) return cudaErrorInvalidValue;
+  // 32-bit cell indices: every flat grid offset fits in an int
+  if (static_cast<long long>(D) * H * W * C >= (1LL << 31)) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  kron_sample_dpoints_kernel<<<blocks(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      points, cot, grid, d_points, g, inv_vs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // float4 units when every row of the grid and of the cotangent starts on
+  // a 16-byte boundary; single channels otherwise
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(cot) % 16 == 0;
+  // a batch of 8 channels per lane, or 1 unit where a lane owns no more
+  const int units = vec4 ? C / 4 : C;
+  const bool one = units <= (1 << group_log2);
+  if (vec4 && one)
+    kron_sample_dpoints_kernel<4, 1><<<blocks(g), kThreads, 0, s>>>(points, cot, grid, d_points, g, inv_vs);
+  else if (vec4)
+    kron_sample_dpoints_kernel<4, 2><<<blocks(g), kThreads, 0, s>>>(points, cot, grid, d_points, g, inv_vs);
+  else if (one)
+    kron_sample_dpoints_kernel<1, 1><<<blocks(g), kThreads, 0, s>>>(points, cot, grid, d_points, g, inv_vs);
+  else
+    kron_sample_dpoints_kernel<1, 8><<<blocks(g), kThreads, 0, s>>>(points, cot, grid, d_points, g, inv_vs);
   return cudaGetLastError();
 }

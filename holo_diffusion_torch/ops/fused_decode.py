@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .kron_sample import kron_sample_dpoints_reference
+from .kron_sample import check_flat_index, kron_sample_dpoints_reference
 from .voxel import continuous_indices, sample_voxel_grid_world
 
 NEG_SLOPE = 0.2  # torch.nn.LeakyReLU(0.2)
@@ -213,6 +213,7 @@ def _kernel_operands(grid, A, c, Wr, br, points, pe_dirs, hidden, **extra):
 def _fused_sample_decode_cuda(grid, A, c, Wr, br, points, pe_dirs, extent, hidden, g1):
     extra = {} if g1 is None else {"g1": g1}
     ops, dims = _kernel_operands(grid, A, c, Wr, br, points, pe_dirs, hidden, **extra)
+    check_flat_index(grid.shape)
     D, H, W = grid.shape[:3]
     if g1 is not None and g1.shape != (D, H, W):
         raise ValueError(f"g1 {tuple(g1.shape)} must be {(D, H, W)}")

@@ -38,15 +38,22 @@ DEFAULT_MAX_GC = 16 ** 3 * 64
 ENTRY_POINTS = ("kron_sample_fwd", "kron_sample_dgrid", "kron_sample_dpoints")
 
 _launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
+# the same launches by channel count, keyed "<entry point>@C<C>"
+_launches_by_channels: Dict[str, int] = {}
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def launch_counts_by_channels() -> Dict[str, int]:
+    return dict(_launches_by_channels)
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    _launches_by_channels.clear()
 
 
 # ---- plain versions
@@ -106,9 +113,34 @@ def kron_sample_dpoints_reference(
 
 
 def group_log2(C: int) -> int:
-    """log2 of the lanes that share one point in the sampling kernels: the
-    smallest power of two >= C, at most a warp (32)."""
+    """log2 of the lanes that share one point in K4, K5 and K7: the smallest
+    power of two >= C, at most a warp (32)."""
     return min(5, max(0, (C - 1).bit_length()))
+
+
+# channels a K6 lane owns: 16 (4 lanes per point at C 64) was the fastest
+# of G = 2..32 at C 64 on an H100 (`kernel_sweep.py`)
+DPOINTS_LANE_CHANNELS = 16
+
+
+def dpoints_layout(C: int) -> Tuple[int, int]:
+    """K6's layout for C channels: (log2 of the lanes per point, channels per
+    unit). About 16 channels per lane: G = the smallest power of two >=
+    ceil(C / 16), at most a warp (1 at C <= 16, 4 at C 64, 32 at C 257). A
+    unit is a float4 when C % 4 == 0 (and the grid and cotangent rows lie on
+    16-byte boundaries, which the kernel checks), else one float. The kernel
+    holds 8 channels of cotangent in registers at a time."""
+    lanes_log2 = min(5, max(0, (-(-C // DPOINTS_LANE_CHANNELS) - 1).bit_length()))
+    return lanes_log2, 4 if C % 4 == 0 else 1
+
+
+def check_flat_index(grid_shape) -> None:
+    """K6 (and the fused decode) index the grid with 32-bit offsets."""
+    n = 1
+    for d in grid_shape:
+        n *= int(d)
+    if n >= 2 ** 31:
+        raise ValueError(f"grid {tuple(grid_shape)} has {n} elements: 32-bit offsets take < 2**31")
 
 
 def check_operands(points: torch.Tensor, C: int, grid=None, g=None) -> None:
@@ -147,15 +179,18 @@ def _library():
     return lib
 
 
-def _launch(name: str, pointers, grid_shape, n: int, extent: float, *tail, device):
+def _launch(name: str, pointers, grid_shape, n: int, extent: float, *tail, device, lanes_log2=None):
     D, H, W, C = grid_shape
+    lanes_log2 = group_log2(C) if lanes_log2 is None else lanes_log2
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_library(), name)(
-            *pointers, n, D, H, W, C, group_log2(C), float(extent) / D, *tail, stream)
+            *pointers, n, D, H, W, C, lanes_log2, float(extent) / D, *tail, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _launches[name] += 1
+    key = f"{name}@C{C}"
+    _launches_by_channels[key] = _launches_by_channels.get(key, 0) + 1
 
 
 def _fwd_cuda(grid, points, extent):
@@ -181,6 +216,7 @@ def _dgrid_cuda(points, g, grid_shape, extent):
 
 def _dpoints_cuda(grid, points, g, extent):
     check_operands(points, grid.shape[-1], grid=grid, g=g)
+    check_flat_index(grid.shape)
     grid, points = grid.contiguous(), points.contiguous()
     g = None if g is None else g.contiguous()
     out = torch.empty(points.shape, dtype=torch.float32, device=points.device)
@@ -188,7 +224,8 @@ def _dpoints_cuda(grid, points, g, extent):
         # a null cotangent is the all-ones one, never materialised
         g_ptr = None if g is None else g.data_ptr()
         _launch("kron_sample_dpoints", (points.data_ptr(), g_ptr, grid.data_ptr(), out.data_ptr()),
-                grid.shape, points.shape[0], extent, grid.shape[0] / float(extent), device=points.device)
+                grid.shape, points.shape[0], extent, grid.shape[0] / float(extent), device=points.device,
+                lanes_log2=dpoints_layout(grid.shape[-1])[0])
     return out
 
 

@@ -68,6 +68,72 @@ def test_kernel_matches_plain_on_card(shape, normals):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+# the hydrant render's two chunk shapes (640 rays x 64 coarse points, x 128
+# after the fine pass): the persistent grid walks 2,560 and 5,120 warp tiles
+RENDER_CHUNKS = {"coarse": 64, "fine": 128}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", list(RENDER_CHUNKS))
+@pytest.mark.parametrize("normals", [False, True], ids=["K1", "K3"])
+def test_kernel_matches_plain_at_render_chunks(chunk, normals):
+    """K1/K3 at hydrant width (16^3 x 64 grid, hidden 256) on both render
+    chunks: the 3 x TF32 split holds float32's 1e-5."""
+    dev = _device()
+    sh = dict(D=16, C=64, hidden=256, R=640, P=RENDER_CHUNKS[chunk])
+    grid, A, c, Wr, br, pts, pe = (x.to(dev) for x in _inputs(17, **sh))
+    kw = {"g1": _g1(grid, A)} if normals else {}
+    out = fd.fused_sample_decode(grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], **kw)
+    ref = fd.fused_sample_decode_reference(grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _lattice_points(D, seed):
+    """Points whose x lies exactly on a voxel plane (ix an integer, the
+    grid's faces ix = 0 and D - 1 included) with y and z off the planes, and
+    points beyond the grid on every axis. EXTENT / D is a power of two, so
+    x / (EXTENT / D) is exact in float32 on every device."""
+    rs = np.random.RandomState(seed)
+    vs = EXTENT / D
+    ix = np.concatenate([np.arange(D), [0, D - 1] * 8]).astype(np.float64)
+    on_plane = np.stack([(ix - 0.5 * (D - 1)) * vs,
+                         rs.uniform(-0.45, 0.45, ix.shape) * EXTENT,
+                         rs.uniform(-0.45, 0.45, ix.shape) * EXTENT], axis=-1)
+    # beyond the grid: every index below -1 or above D
+    far = rs.uniform(0.5 * (D + 2) * vs, EXTENT, (32, 3)) * rs.choice([-1.0, 1.0], (32, 3))
+    return [torch.from_numpy(x.astype(np.float32)) for x in (on_plane, far)]
+
+
+@pytest.mark.cuda
+def test_fused_decode_on_voxel_planes_and_outside_the_grid():
+    """K3 at points exactly on x voxel planes and on the grid's faces: the
+    field gradient's x slope is exactly 0 there; beyond the grid the sample
+    is zero, so the density is leaky_relu(c[hidden]) and the gradient 0;
+    every output as the plain version's."""
+    dev = _device()
+    sh = dict(D=16, C=64, hidden=256, R=1, P=1)
+    grid, A, c, Wr, br, _, _ = (x.to(dev) for x in _inputs(18, **sh))
+    on_plane, far = (x.to(dev) for x in _lattice_points(16, 19))
+    for name, pts in (("on_plane", on_plane), ("outside", far)):
+        pts = pts[:, None, :]
+        pe = torch.randn((pts.shape[0], PE_DIM), generator=torch.Generator().manual_seed(20)).to(dev)
+        args = (grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"])
+        out = fd.fused_sample_decode(*args, g1=_g1(grid, A))
+        ref = fd.fused_sample_decode_reference(*args, g1=_g1(grid, A))
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+        dens, _, grads = out
+        if name == "on_plane":
+            assert bool((grads[..., 0] == 0).all()), "slope 0 on a voxel plane"
+        else:
+            assert bool((grads == 0).all()), "zero gradient outside the grid"
+            want = torch.nn.functional.leaky_relu(c[sh["hidden"]], fd.NEG_SLOPE)
+            torch.testing.assert_close(dens, want.expand_as(dens), rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.cuda
 def test_kernel_takes_strided_points_and_empty_input():
     """Non-contiguous points give the contiguous result; no rays launch
@@ -191,6 +257,62 @@ def test_sampling_kernels_match_plain_on_card(shape):
     _assert_rel_close(d_grid, ks.kron_sample_dgrid_reference(pts, cot, grid.shape, EXTENT), 1e-4, "d_grid")
     _assert_rel_close(d_pts, ks.kron_sample_dpoints_reference(grid, pts, cot, EXTENT), 1e-4, "d_points")
     _assert_rel_close(field_grad, ks.kron_sample_dpoints_reference(grid, pts, None, EXTENT), 1e-4, "field")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 8, 64, 257])
+@pytest.mark.parametrize("with_cot", [False, True], ids=["ones", "cotangent"])
+def test_dpoints_kernel_matches_plain_by_channels(C, with_cot):
+    """K6 at every layout of `dpoints_layout` (one lane of scalars at C 1 and
+    3, one lane of float4 units at C 8, 4 lanes at C 64, 32 scalar lanes at
+    C 257), with the all-ones and with a random cotangent: 1e-4 of scale."""
+    dev = _device()
+    grid, pts, cot = _sample_inputs(24, 16, C, 6000, dev)
+    before = ks.launch_counts()["kron_sample_dpoints"]
+    g = cot if with_cot else None
+    got = ks.kron_sample_dpoints(grid, pts, g, EXTENT)
+    want = ks.kron_sample_dpoints_reference(grid, pts, g, EXTENT)
+    torch.cuda.synchronize()
+    assert ks.launch_counts()["kron_sample_dpoints"] == before + 1
+    _assert_rel_close(got, want, 1e-4, f"d_points C {C}")
+
+
+@pytest.mark.cuda
+def test_dpoints_kernel_takes_an_unaligned_cotangent():
+    """A cotangent view that starts off a 16-byte boundary takes the scalar
+    channel loop at C 64, with the float4 path's result."""
+    dev = _device()
+    grid, pts, cot = _sample_inputs(25, 16, 64, 3000, dev)
+    backing = torch.empty(cot.numel() + 1, device=dev)
+    shifted = backing[1:].view(cot.shape)
+    shifted.copy_(cot)
+    assert shifted.data_ptr() % 16 != 0
+    got = ks.kron_sample_dpoints(grid, pts, shifted, EXTENT)
+    want = ks.kron_sample_dpoints(grid, pts, cot, EXTENT)
+    torch.cuda.synchronize()
+    _assert_rel_close(got, want, 1e-6, "unaligned cotangent")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 64])
+def test_dpoints_on_voxel_planes_and_outside_the_grid(C):
+    """K6 at points exactly on x voxel planes and on the grid's faces: the x
+    cotangent is exactly 0 (the hat's slope is 0 on a plane); beyond the grid
+    every component is exactly 0 (zero padding); both as the plain version."""
+    dev = _device()
+    grid, _, _ = _sample_inputs(26, 16, C, 1, dev)
+    on_plane, far = (x.to(dev) for x in _lattice_points(16, 27))
+    for name, pts in (("on_plane", on_plane), ("outside", far)):
+        cot = torch.randn((pts.shape[0], C), generator=torch.Generator().manual_seed(28)).to(dev)
+        for g in (None, cot):
+            got = ks.kron_sample_dpoints(grid, pts, g, EXTENT)
+            want = ks.kron_sample_dpoints_reference(grid, pts, g, EXTENT)
+            torch.cuda.synchronize()
+            if name == "on_plane":
+                _assert_rel_close(got, want, 1e-4, name)
+                assert bool((got[:, 0] == 0).all()) and bool((want[:, 0] == 0).all()), "slope 0 on a plane"
+            else:
+                assert bool((got == 0).all()) and bool((want == 0).all()), "zero outside the grid"
 
 
 @pytest.mark.cuda

@@ -154,7 +154,7 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax():
     """An AST scan (sys.modules cannot tell: jax may be imported at startup)."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_sweep.py")]
     for root, _, names in os.walk(os.path.join(REPO, "holo_diffusion_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
