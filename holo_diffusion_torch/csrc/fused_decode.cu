@@ -33,7 +33,8 @@
 //   * A persistent grid of one 512-thread block per SM stages A, c, Wr and
 //     br in shared memory once per block (132 times per launch), 16 loads of
 //     A in flight per thread, each thread writing whole 16-byte fragment
-//     slots (no bank conflicts). Each block takes an even
+//     slots (no bank conflicts; `stage_split_a`, tf32_mma.cuh, shared with
+//     the backward). Each block takes an even
 //     share of the 16-point tiles, so the coarse (40,960-point) and fine
 //     (81,920-point) chunks both load every SM.
 //   * A warp owns a 16-point tile. Lanes 0-15 each compute one point's 8
@@ -58,7 +59,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using tf32x3::mma;
+using tf32x3::split;
 
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
@@ -73,27 +79,6 @@ __device__ __forceinline__ float lrelu(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-// round to TF32 (10 mantissa bits), to nearest with ties away from zero
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// d += a (16x8, row) * b (8x8, col), TF32 in, float32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 struct Params {
@@ -151,32 +136,9 @@ fused_decode_kernel(const Params p) {
   float* sPe = smem + L.sPe;
   float* sbr = smem + L.sbr;
 
-  // ---- stage the weights once per block, in fragment order: each thread
-  // fills whole 16-byte slots (conflict-free stores) with 16 loads of A in
-  // flight; slot (nt, ks, lane 4 g + t) takes A[8 ks + t (+ 4)][8 nt + g]
+  // ---- stage the weights once per block: A split, in fragment order
   constexpr int kKSteps = C / 8;
-  const int n_slots = (n_cols / 8) * kKSteps * 32;
-  uint4* sB4 = reinterpret_cast<uint4*>(sB);
-  for (int s0 = threadIdx.x; s0 < n_slots; s0 += 8 * kThreads) {
-    float a[8][2];
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int slot = s0 + b * kThreads, blk = slot >> 5, ln = slot & 31;
-      const int k = 8 * (blk % kKSteps) + (ln & 3), j = 8 * (blk / kKSteps) + (ln >> 2);
-      const bool live = slot < n_slots && j < n_out;
-      a[b][0] = live ? __ldg(p.A + k * p.j_pad + j) : 0.f;
-      a[b][1] = live ? __ldg(p.A + (k + 4) * p.j_pad + j) : 0.f;
-    }
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int slot = s0 + b * kThreads;
-      if (slot >= n_slots) break;
-      uint4 v;
-      split(a[b][0], v.x, v.z);
-      split(a[b][1], v.y, v.w);
-      sB4[slot] = v;
-    }
-  }
+  tf32x3::stage_split_a<C, kThreads>(sB, p.A, p.j_pad, n_out, n_cols);
   for (int j = threadIdx.x; j < n_cols; j += kThreads) {
     const bool h = j < p.hidden;
     sc[j] = j < n_out ? p.c[j] : 0.f;

@@ -25,19 +25,23 @@
 // sequential grid steps. Hopper has a gather and its blocks run in no order,
 // so each point is handled by a group of lanes that computes the point's 8
 // corners and walks its channels.
-//   * K4, K5 (and K7 in fused_render.cu): G = the smallest power of two >= C,
+//   * K5 (and K7 in fused_render.cu): G = the smallest power of two >= C,
 //     at most a warp, with consecutive lanes on consecutive channels of one
-//     corner: coalesced reads (K4), writes (K4) and atomics (K5), for any C,
-//     one float at a time. Every lane recomputes the point's three divisions
-//     and 8 corners for C / G channels (2 at C 64): bound by instructions,
-//     at 6-11 % of the bytes bound. K5 scatters with atomicAdd into a zeroed
-//     grid (the sum order changes from run to run: not bit-reproducible).
-//   * K6 has fewer lanes with more channels each (about 16 per lane: G = 4
-//     at C 64, 1 at C 1; `dpoints_layout` in ops/kron_sample.py), 32-bit cells,
-//     float4 channel units where C % 4 == 0 and a scalar loop otherwise
-//     (C 257). Each lane computes the corners once, loads its cotangent
-//     channels once into registers and walks the 8 corners with them, then
-//     the group reduces its three sums in log2(G) shuffle rounds.
+//     corner: coalesced atomics (K5) for any C, one float at a time. Every
+//     lane recomputes the point's three divisions and 8 corners for C / G
+//     channels (2 at C 64). K5 scatters with atomicAdd into a zeroed grid
+//     (the sum order changes from run to run: not bit-reproducible).
+//   * K4 and K6 have fewer lanes with more channels each (K4: at least 8
+//     per lane in float4 units, 16 single, `sample_layout`; K6: about 16,
+//     `dpoints_layout`, both in ops/kron_sample.py), 32-bit cells, float4 channel units where
+//     C % 4 == 0 and both rows lie on 16-byte boundaries, and a scalar loop
+//     otherwise (C 257). Each lane computes the corners once and walks its
+//     units in register batches over the 8 corners, with no branch on a
+//     corner: one outside the grid reads cell 0 with weight 0, so all of a
+//     batch's loads can be in flight together. Lane l owns units l, l + G,
+//     ..., so the lanes of a point read (K4 also writes) consecutive units
+//     of a row. K6 loads its cotangent channels once into registers and
+//     reduces its three sums over the group in log2(G) shuffle rounds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,10 +63,12 @@ __device__ __forceinline__ float hat_slope(float e) {
   return fabsf(e) < 1.f ? (e > 0.f ? -1.f : (e < 0.f ? 1.f : 0.f)) : 0.f;
 }
 
-// The 8 corners of point i in (dz, dy, dx) order: flat cell and hat weight
-// (0 outside the grid).
+// The 8 corners of point i in (dz, dy, dx) order: flat cell (64-bit for K5,
+// 32-bit for K4) and hat weight; a corner outside the grid gets cell 0 and
+// weight 0.
+template <typename Cell>
 __device__ __forceinline__ void corners(const float* points, long long i,
-                                        const Geometry& g, long long* cell, float* w) {
+                                        const Geometry& g, Cell* cell, float* w) {
   const float ix = points[3 * i + 0] / g.voxel_size + 0.5f * (g.W - 1);
   const float iy = points[3 * i + 1] / g.voxel_size + 0.5f * (g.H - 1);
   const float iz = points[3 * i + 2] / g.voxel_size + 0.5f * (g.D - 1);
@@ -74,28 +80,78 @@ __device__ __forceinline__ void corners(const float* points, long long i,
                         qy <= g.H - 1 && qz >= 0.f && qz <= g.D - 1;
     const float hx = hat(ix - qx), hy = hat(iy - qy), hz = hat(iz - qz);
     w[k] = inside ? hx * hy * hz : 0.f;
-    cell[k] = inside ? (static_cast<long long>(qz) * g.H + static_cast<long long>(qy)) * g.W +
-                           static_cast<long long>(qx)
+    cell[k] = inside ? (static_cast<Cell>(qz) * g.H + static_cast<Cell>(qy)) * g.W +
+                           static_cast<Cell>(qx)
                      : 0;
   }
 }
 
+// Channel units: a float4 of channels 4u..4u+3 (VEC 4) or one channel.
+template <int VEC>
+struct Unit;
+template <>
+struct Unit<4> {
+  using T = float4;
+  static __device__ __forceinline__ float dot(const T& a, const T& b) {
+    return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+  }
+  static __device__ __forceinline__ float sum(const T& a) { return (a.x + a.y) + (a.z + a.w); }
+  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ T fma(float w, const T& x, const T& acc) {
+    return make_float4(fmaf(w, x.x, acc.x), fmaf(w, x.y, acc.y), fmaf(w, x.z, acc.z),
+                       fmaf(w, x.w, acc.w));
+  }
+};
+template <>
+struct Unit<1> {
+  using T = float;
+  static __device__ __forceinline__ float dot(const T& a, const T& b) { return a * b; }
+  static __device__ __forceinline__ float sum(const T& a) { return a; }
+  static __device__ __forceinline__ T zero() { return 0.f; }
+  static __device__ __forceinline__ T fma(float w, const T& x, const T& acc) { return fmaf(w, x, acc); }
+};
+
+// K4: G = 1 << group_log2 lanes per point (`sample_layout`). Each lane
+// computes the point's corners once, then walks its units in batches of
+// BATCH (lane l owns units l, l + G, ...): a batch's accumulators stay in
+// registers across the 8 corners, summed in corner order as the plain
+// version does, and the lanes of a point store consecutive units of its
+// row (coalesced).
+template <int VEC, int BATCH>
 __global__ void __launch_bounds__(kThreads)
 kron_sample_fwd_kernel(const float* __restrict__ points, const float* __restrict__ grid,
                        float* __restrict__ out, const Geometry g) {
+  using U = Unit<VEC>;
+  using T = typename U::T;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long i = t >> g.group_log2;
-  const int lane = static_cast<int>(t & ((1 << g.group_log2) - 1));
+  const int lanes = 1 << g.group_log2;
+  const int lane = static_cast<int>(t & (lanes - 1));
   if (i >= g.n) return;
-  long long cell[8];
+  int cell[8];
   float w[8];
   corners(points, i, g, cell, w);
-  for (int c = lane; c < g.C; c += 1 << g.group_log2) {
-    float acc = 0.f;
+  const int units = g.C / VEC;
+  const T* grid_u = reinterpret_cast<const T*>(grid);
+  T* out_u = reinterpret_cast<T*>(out) + i * units;
+  for (int u0 = lane; u0 < units; u0 += BATCH * lanes) {
+    T acc[BATCH];
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (w[k] != 0.f) acc = fmaf(w[k], __ldg(grid + cell[k] * g.C + c), acc);
-    out[i * g.C + c] = acc;
+    for (int b = 0; b < BATCH; ++b) acc[b] = U::zero();
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const T* row = grid_u + cell[k] * units;
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        const int u = u0 + b * lanes;
+        if (u < units) acc[b] = U::fma(w[k], __ldg(row + u), acc[b]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int u = u0 + b * lanes;
+      if (u < units) out_u[u] = acc[b];
+    }
   }
 }
 
@@ -129,25 +185,6 @@ kron_sample_dgrid_kernel(const float* __restrict__ points, const float* __restri
 // cotangent (the spatial gradient of the field summed over channels). The
 // three sums reduce over the group in log2(G) shuffle rounds; every thread
 // of the launch reaches them.
-template <int VEC>
-struct Unit;
-template <>
-struct Unit<4> {
-  using T = float4;
-  static __device__ __forceinline__ float dot(const T& a, const T& b) {
-    return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
-  }
-  static __device__ __forceinline__ float sum(const T& a) { return (a.x + a.y) + (a.z + a.w); }
-  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-};
-template <>
-struct Unit<1> {
-  using T = float;
-  static __device__ __forceinline__ float dot(const T& a, const T& b) { return a * b; }
-  static __device__ __forceinline__ float sum(const T& a) { return a; }
-  static __device__ __forceinline__ T zero() { return 0.f; }
-};
-
 template <int VEC, int BATCH>
 __global__ void __launch_bounds__(kThreads)
 kron_sample_dpoints_kernel(const float* __restrict__ points, const float* __restrict__ cot,
@@ -243,6 +280,26 @@ unsigned blocks(const Geometry& g) {
   return static_cast<unsigned>(((g.n << g.group_log2) + kThreads - 1) / kThreads);
 }
 
+// K4's batch: a lane's units held in registers at once, the next power of
+// two >= the units it owns, at most 4 float4 or 8 floats (a batch of 16
+// floats took 93 registers, 2 blocks per SM, and was slower at every G on
+// an H100)
+template <int VEC>
+cudaError_t launch_fwd(const float* points, const float* grid, float* out, const Geometry& g,
+                       cudaStream_t s) {
+  const int lanes = 1 << g.group_log2;
+  const int per_lane = (g.C / VEC + lanes - 1) / lanes;
+  if (per_lane <= 1)
+    kron_sample_fwd_kernel<VEC, 1><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
+  else if (per_lane <= 2)
+    kron_sample_fwd_kernel<VEC, 2><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
+  else if (VEC == 4 || per_lane <= 4)
+    kron_sample_fwd_kernel<VEC, 4><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
+  else
+    kron_sample_fwd_kernel<1, 8><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int kron_sample_fwd(const float* points, const float* grid, float* out,
@@ -250,10 +307,15 @@ extern "C" int kron_sample_fwd(const float* points, const float* grid, float* ou
                                int group_log2, float voxel_size, void* stream) {
   const Geometry g = make_geometry(n, D, H, W, C, group_log2, voxel_size);
   if (!valid(g)) return cudaErrorInvalidValue;
+  // 32-bit cell indices: every flat grid offset fits in an int
+  if (static_cast<long long>(D) * H * W * C >= (1LL << 31)) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  kron_sample_fwd_kernel<<<blocks(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      points, grid, out, g);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // float4 units when every row of the grid and of the output starts on a
+  // 16-byte boundary; single channels otherwise
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return vec4 ? launch_fwd<4>(points, grid, out, g, s) : launch_fwd<1>(points, grid, out, g, s);
 }
 
 extern "C" int kron_sample_dgrid(const float* points, const float* cot, float* d_grid,

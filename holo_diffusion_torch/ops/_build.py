@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 into `build/holo_diffusion_torch/lib<name>-<digest>.so` beside the package
-(the digest covers the source and the flags, so an edited source rebuilds).
+(the digest covers the source, every header under `csrc/` and the flags, so
+an edited source, or an edited header, rebuilds).
 The library is loaded with `ctypes`. Nothing is built at import time.
 """
 from __future__ import annotations
@@ -40,8 +41,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

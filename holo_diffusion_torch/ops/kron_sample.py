@@ -113,7 +113,7 @@ def kron_sample_dpoints_reference(
 
 
 def group_log2(C: int) -> int:
-    """log2 of the lanes that share one point in K4, K5 and K7: the smallest
+    """log2 of the lanes that share one point in K5 and K7: the smallest
     power of two >= C, at most a warp (32)."""
     return min(5, max(0, (C - 1).bit_length()))
 
@@ -121,6 +121,11 @@ def group_log2(C: int) -> int:
 # channels a K6 lane owns: 16 (4 lanes per point at C 64) was the fastest
 # of G = 2..32 at C 64 on an H100 (`kernel_sweep.py`)
 DPOINTS_LANE_CHANNELS = 16
+# channels a K4 lane owns at least: 16 in float4 units, 32 single. On the
+# render chunks' ray-ordered points, G = 4 at C 64 and G = 8 at C 257 were
+# the fastest of G = 1..32 on an H100 (`kernel_sweep.py`; on uniformly
+# random points G = 8 and 16 were, by 3 % and 17 %)
+SAMPLE_LANE_CHANNELS = {4: 16, 1: 32}
 
 
 def dpoints_layout(C: int) -> Tuple[int, int]:
@@ -134,8 +139,19 @@ def dpoints_layout(C: int) -> Tuple[int, int]:
     return lanes_log2, 4 if C % 4 == 0 else 1
 
 
+def sample_layout(C: int) -> Tuple[int, int]:
+    """K4's layout: (log2 of the lanes per point, channels per unit). G is
+    the largest power of two, at most a warp, that leaves each lane at least
+    SAMPLE_LANE_CHANNELS[unit] channels (1 lane at C < 32, 4 at C 64, 8 at
+    C 257); units as `dpoints_layout`'s, and lane l owns units l, l + G,
+    l + 2G, ... A lane holds up to 4 float4 or 8 single channels of
+    accumulators at a time."""
+    vec = 4 if C % 4 == 0 else 1
+    return min(5, max(0, (C // SAMPLE_LANE_CHANNELS[vec]).bit_length() - 1)), vec
+
+
 def check_flat_index(grid_shape) -> None:
-    """K6 (and the fused decode) index the grid with 32-bit offsets."""
+    """K4, K6 (and the fused decode) index the grid with 32-bit offsets."""
     n = 1
     for d in grid_shape:
         n *= int(d)
@@ -195,11 +211,13 @@ def _launch(name: str, pointers, grid_shape, n: int, extent: float, *tail, devic
 
 def _fwd_cuda(grid, points, extent):
     check_operands(points, grid.shape[-1], grid=grid)
+    check_flat_index(grid.shape)
     grid, points = grid.contiguous(), points.contiguous()
     out = torch.empty((points.shape[0], grid.shape[-1]), dtype=torch.float32, device=points.device)
     if points.shape[0] > 0:
         _launch("kron_sample_fwd", (points.data_ptr(), grid.data_ptr(), out.data_ptr()),
-                grid.shape, points.shape[0], extent, device=points.device)
+                grid.shape, points.shape[0], extent, device=points.device,
+                lanes_log2=sample_layout(grid.shape[-1])[0])
     return out
 
 

@@ -1,5 +1,5 @@
 """The CUDA kernels of holo_diffusion_torch (the fused decode forward, K1/K3,
-and its backward K2; the trilinear sample K4 with its grid and points
+and its backward K2, also where points share voxels; the trilinear sample K4 with its grid and points
 cotangents K5/K6; the one-hot-formulation sample K7) against their plain
 PyTorch versions, on the card. Every test here is marked `cuda` and skips without a
 CUDA device. The file imports neither JAX nor the JAX package, so it also
@@ -344,6 +344,117 @@ def test_sampling_kernels_take_empty_and_strided_input():
     assert not strided.is_contiguous()
     torch.testing.assert_close(ks.kron_sample_fwd(grid, strided, EXTENT), ks.kron_sample_fwd(grid, pts, EXTENT),
                                rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 8, 64, 257])
+def test_sample_kernel_matches_plain_by_channels(C):
+    """K4 at every layout of `sample_layout` (one lane of scalars at C 1 and
+    3, one lane of two float4 units at C 8, 4 lanes at C 64, 8 scalar lanes
+    at C 257) on random points, on points exactly on x voxel planes and the
+    grid's faces, and beyond the grid (exactly 0): 1e-5 absolute."""
+    dev = _device()
+    grid, pts, _ = _sample_inputs(29, 16, C, 6000, dev)
+    on_plane, far = (x.to(dev) for x in _lattice_points(16, 30))
+    before = ks.launch_counts()["kron_sample_fwd"]
+    for name, p in (("random", pts), ("on_plane", on_plane), ("outside", far)):
+        got = ks.kron_sample_fwd(grid, p, EXTENT)
+        want = ks.kron_sample_fwd_reference(grid, p, EXTENT)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5, msg=name)
+        if name == "outside":
+            assert bool((got == 0).all()), "zero outside the grid"
+    assert ks.launch_counts()["kron_sample_fwd"] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 257])
+def test_sample_kernel_takes_strided_empty_and_unaligned_input(C):
+    """K4 on strided points gives the contiguous result; no points launch
+    nothing; a grid view that starts off a 16-byte boundary takes single
+    channels at C 64, with the float4 path's result."""
+    dev = _device()
+    grid, pts, _ = _sample_inputs(31, 16, C, 3000, dev)
+    before = ks.launch_counts()
+    assert ks.kron_sample_fwd(grid, pts[:0], EXTENT).shape == (0, C)
+    assert ks.launch_counts() == before
+    strided = pts.t().contiguous().t()
+    assert not strided.is_contiguous()
+    want = ks.kron_sample_fwd(grid, pts, EXTENT)
+    torch.testing.assert_close(ks.kron_sample_fwd(grid, strided, EXTENT), want, rtol=0, atol=0)
+    backing = torch.empty(grid.numel() + 1, device=dev)
+    shifted = backing[1:].view(grid.shape)
+    shifted.copy_(grid)
+    assert shifted.data_ptr() % 16 != 0
+    torch.testing.assert_close(ks.kron_sample_fwd(shifted, pts, EXTENT), want, rtol=0, atol=1e-6)
+
+
+def _ray_points(seed, R, P):
+    """(R, P, 3) points in depth order along R rays: origins at distance
+    EXTENT in random directions, aimed within a quarter EXTENT of the
+    centre, P sorted depths over [0.25, 1.75] x EXTENT."""
+    rs = np.random.RandomState(seed)
+    o = rs.randn(R, 3)
+    o = EXTENT * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rs.uniform(-0.25, 0.25, (R, 3)) * EXTENT - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rs.uniform(0.25, 1.75, (R, P)), axis=-1) * EXTENT
+    return torch.from_numpy((o[:, None] + t[..., None] * d[:, None]).astype(np.float32))
+
+
+def _one_voxel_points(seed, R, P, D):
+    """(R, P, 3) points that all lie strictly inside one voxel of a D^3 grid
+    (every point shares the same 8 corner cells)."""
+    rs = np.random.RandomState(seed)
+    vs = EXTENT / D
+    corner = (np.array([5, 7, 9]) - 0.5 * (D - 1)) * vs
+    return torch.from_numpy((corner + rs.uniform(0.05, 0.95, (R, P, 3)) * vs).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", ["ray_ordered", "one_voxel"])
+def test_backward_kernel_where_points_share_voxels(points):
+    """K2 at hydrant width where consecutive points share corner cells, so
+    its scatter merges them before the atomic: 24 rays of 128 points in
+    depth order, and one 32-point tile (2 rays x 16) whose points all lie in
+    one voxel. The five cotangents within 1e-3 of each one's scale, as on
+    random points. (Over many points in one voxel, some pre-activation of
+    nearly every column lies within rounding of 0, where the kernel and
+    cuBLAS may take different leaky-ReLU slopes: the exception the tolerance
+    states.) The one-voxel tile has no pre-activation within 3e-5 of 0, so
+    there d_grid, dA and dc hold 1e-5 of scale: the three products keep
+    float32 accuracy in the 3 x TF32 split, where one TF32 pass is off by
+    about 2e-4 (`tests/test_torch_tf32_split.py`)."""
+    dev = _device()
+    R, P = (24, 128) if points == "ray_ordered" else (2, 16)
+    sh = dict(D=16, C=64, hidden=256, R=R, P=P)
+    grid, A, c, Wr, br, _, pe = (x.to(dev) for x in _inputs(32, **sh))
+    pts = (_ray_points(33, R, P) if points == "ray_ordered" else _one_voxel_points(33, R, P, 16)).to(dev)
+    g = _cotangent(34, R, P).to(dev)
+    args = (grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], g)
+    got = fd._fused_sample_decode_bwd_cuda(*args)
+    want = fd.fused_sample_decode_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert float(want[0].abs().max()) > 0
+    _assert_cotangents_close(got, want, 1e-3)
+    if points == "one_voxel":
+        _assert_cotangents_close(got[:3], want[:3], 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 64])
+def test_backward_kernel_with_a_ragged_last_tile(C):
+    """K2 on 7 x 45 = 315 points, not a multiple of its 32-point tile:
+    the last tile's missing points contribute nothing (1e-3 of scale)."""
+    dev = _device()
+    sh = dict(D=8 if C == 32 else 16, C=C, hidden=48 if C == 32 else 256, R=7, P=45)
+    grid, A, c, Wr, br, pts, pe = (x.to(dev) for x in _inputs(35, **sh))
+    g = _cotangent(36, 7, 45).to(dev)
+    args = (grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], g)
+    got = fd._fused_sample_decode_bwd_cuda(*args)
+    want = fd.fused_sample_decode_bwd_reference(*args)
+    torch.cuda.synchronize()
+    _assert_cotangents_close(got, want, 1e-3)
 
 
 @pytest.mark.cuda

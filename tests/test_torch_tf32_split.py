@@ -1,6 +1,9 @@
-"""The arithmetic of the fused decode's tensor-core affine (`csrc/fused_decode.cu`),
-pinned on the CPU before the card runs it, and the lane layout of the points
-cotangent kernel K6 (`ops/kron_sample.py:dpoints_layout`).
+"""The arithmetic of the fused decode's tensor-core products, pinned on the
+CPU before the card runs it: the forward's affine (`csrc/fused_decode.cu`)
+and the backward's dA = s^T d_pre and d_s = d_pre A^T
+(`csrc/fused_decode_bwd.cu`); the lane layouts of the sampling kernels K4
+and K6 (`ops/kron_sample.py:sample_layout`, `dpoints_layout`); and the
+kernels' build keys (`ops/_build.py`).
 
 The kernel computes pre = s @ A + c with mma.sync TF32 products in the
 3 x TF32 split: each float32 operand x = hi + lo with hi = tf32(x) and
@@ -147,6 +150,15 @@ def test_dpoints_layout_covers_every_channel_once(C_):
     assert ks.group_log2(C_) == {1: 0, 2: 1, 3: 2, 4: 2, 8: 3, 64: 5, 257: 5}[C_]
 
 
+def test_sample_layout_at_the_shapes_the_port_runs():
+    # C 64: 4 lanes of four float4 units; C 257 (the collapsed density
+    # affine): 8 lanes of scalars, lane 0 with the 257th channel
+    assert ks.sample_layout(64) == (2, 4)
+    assert ks.sample_layout(257) == (3, 1)
+    assert sample_lane_channels(64, 1) == [4, 5, 6, 7, 20, 21, 22, 23, 36, 37, 38, 39, 52, 53, 54, 55]
+    assert len(sample_lane_channels(257, 0)) == 33 and len(sample_lane_channels(257, 7)) == 32
+
+
 def test_dpoints_layout_at_the_shapes_the_port_runs():
     # C 1: the normals' field, one lane of scalars; C 64: 4 lanes of four
     # float4 units; C 257: a warp of scalars
@@ -160,3 +172,134 @@ def test_grid_offsets_must_fit_32_bits():
     ks.check_flat_index((16, 16, 16, 64))
     with pytest.raises(ValueError, match="32-bit"):
         ks.check_flat_index((1024, 1024, 1024, 2))
+
+
+# ---- K4's layout
+
+
+def sample_lane_channels(C_, lane):
+    """The channels lane `lane` of a K4 group computes, as the kernel walks
+    them (`kron_sample_fwd_kernel`): units lane, lane + G, ... of
+    `sample_layout`'s width."""
+    lanes_log2, vec = ks.sample_layout(C_)
+    return [vec * u + e for u in range(lane, C_ // vec, 1 << lanes_log2) for e in range(vec)]
+
+
+@pytest.mark.parametrize("C_", [1, 2, 3, 4, 8, 64, 257])
+def test_sample_layout_covers_every_channel_once(C_):
+    lanes_log2, vec = ks.sample_layout(C_)
+    G = 1 << lanes_log2
+    assert 0 <= lanes_log2 <= 5 and vec == (4 if C_ % 4 == 0 else 1)
+    owned = [sample_lane_channels(C_, lane) for lane in range(G)]
+    assert sorted(c for lane in owned for c in lane) == list(range(C_))
+    # at least SAMPLE_LANE_CHANNELS a lane, and twice the lanes would leave
+    # a lane fewer; at most a warp
+    least = ks.SAMPLE_LANE_CHANNELS[vec]
+    assert max(len(o) for o in owned) <= -(-C_ // (G * vec)) * vec
+    assert G == 1 or min(len(o) for o in owned) >= least
+    assert G == 32 or C_ // (2 * G) < least
+    # consecutive lanes own consecutive units of a row (coalesced stores)
+    assert [o[0] for o in owned if o] == [vec * lane for lane in range(min(G, C_ // vec))]
+
+
+# ---- K2's products: dA = s^T d_pre, d_s = d_pre A^T
+
+
+def _d_pre(s, A, c, Wr, br, pe, g):
+    """The backward's d_pre (float32), as `fused_sample_decode_bwd_reference`
+    computes it from the samples s and the cotangent g (n, 4)."""
+    pre = s @ A + c
+    rin = torch.cat([F.leaky_relu(pre[:, :HIDDEN], 0.2), pe], dim=-1)
+    rpre = rin @ Wr + br
+    rgb = torch.sigmoid(F.leaky_relu(rpre, 0.2))
+    slope = lambda x: torch.where(x >= 0, torch.ones_like(x), torch.full_like(x, 0.2))  # noqa: E731
+    d_rpre = g[:, 1:4] * rgb * (1.0 - rgb) * slope(rpre)
+    d_h = torch.cat([d_rpre @ Wr[:HIDDEN].t(), g[:, 0:1]], dim=-1)
+    return d_h * slope(pre)
+
+
+def _product_errors(matmul, s, A, d_pre):
+    """Largest error of dA and d_s against float64, relative to each one's
+    largest magnitude."""
+    out = {}
+    for name, a, b in (("dA", s.t(), d_pre), ("d_s", d_pre, A.t())):
+        exact = a.double() @ b.double()
+        out[name] = float((matmul(a, b).double() - exact).abs().max()) / float(exact.abs().max())
+    return out
+
+
+# the backward's products in the 3 x TF32 split, over 4,096 points at
+# hydrant width: within 1e-6 of each result's scale (the emulation reads
+# 0.7e-7 for dA and 1.2e-7 for d_s, float32's own products 1.7e-7 and
+# 1.4e-7), where one TF32 pass is off by 2.0e-4 and 3.6e-4
+SPLIT_BWD_REL = 1e-6
+
+
+def test_backward_products_keep_float32_accuracy_in_three_tf32_passes(hydrant_decode):
+    s, A, c, Wr, br, pe = hydrant_decode
+    g = torch.from_numpy(np.random.RandomState(2).randn(s.shape[0], 4).astype(np.float32))
+    d_pre = _d_pre(s, A, c, Wr, br, pe, g)
+    assert d_pre.shape == (4096, HIDDEN + 1) and float(d_pre.abs().max()) > 0
+    split_err = _product_errors(matmul_3xtf32, s, A, d_pre)
+    one_err = _product_errors(matmul_1xtf32, s, A, d_pre)
+    assert max(split_err.values()) <= SPLIT_BWD_REL, split_err
+    assert min(one_err.values()) > 10 * SPLIT_BWD_REL, one_err
+
+
+# ---- the kernels' build keys
+
+
+def test_library_key_covers_the_headers(tmp_path, monkeypatch):
+    """An edited header under csrc/ changes every library's key, so each
+    source that includes it rebuilds; an edited source only its own."""
+    from holo_diffusion_torch.ops import _build
+
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "h.cuh").write_text("int h;\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    keys = {n: _build.library_path(n) for n in ("a", "b")}
+    (tmp_path / "h.cuh").write_text("int h2;\n")
+    after_header = {n: _build.library_path(n) for n in ("a", "b")}
+    assert all(after_header[n] != keys[n] for n in keys)
+    (tmp_path / "b.cu").write_text("int b2;\n")
+    assert _build.library_path("a") == after_header["a"] and _build.library_path("b") != after_header["b"]
+
+
+def test_backward_errors_apart_from_near_zero_pre_activations():
+    """`chip_smoke.decode_bwd_errors` counts the nonzero pre-activations
+    within 1e-6 of 0 and holds d_grid apart from the corner cells of their
+    points: an error in such a cell leaves that measure at 0, an error in a
+    cell no such point reaches shows in it."""
+    import pathlib
+    import sys
+
+    from holo_diffusion_torch.ops.voxel import sample_voxel_grid_world
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    try:
+        from chip_smoke import decode_bwd_errors
+    finally:
+        sys.path.remove(str(root))
+    rs = np.random.RandomState(4)
+    D, C_, extent = 4, 8, 4.0
+    grid = torch.from_numpy(rs.randn(D, D, D, C_).astype(np.float32))
+    A = torch.from_numpy(rs.randn(C_, 5).astype(np.float32))
+    # voxel centres at -1.5 .. 1.5: every point among the first 3^3 cells,
+    # point 0 in the first voxel
+    pts = torch.from_numpy(rs.uniform(-1.4, 0.4, (6, 3)).astype(np.float32))
+    pts[0] = -1.2
+    s = sample_voxel_grid_world(grid, pts, extent)
+    c = torch.full((5,), 3.0 * float(s.abs().sum(-1).max()) * float(A.abs().max()))
+    c[0] = 5e-7 - float((s @ A)[0, 0])
+    assert 0 < float((s @ A + c)[0, 0]) < 1e-6
+    args = (grid, A, c, None, None, pts, None, extent)
+    want = [torch.from_numpy(rs.randn(*shape).astype(np.float32)) for shape in ((D, D, D, C_), (C_, 5), (5,))]
+    for cell, apart in ((0, False), (D ** 3 - 1, True)):
+        got = [w.clone() for w in want]
+        got[0].view(-1, C_)[cell, 3] += 1e-3
+        _, rel, near_zero, away = decode_bwd_errors(args, got, want)
+        assert near_zero == 1
+        assert rel["d_grid"] > 0 and rel["dA"] == rel["dc"] == 0
+        assert (away == rel["d_grid"]) if apart else away == 0
