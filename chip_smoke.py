@@ -14,6 +14,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
            density samples it), its grid cotangent (K5) at a training fine
            pass, its points cotangent (K6) at C 1 with the ones cotangent
            (the normals) and at C 64, the one-hot-formulation sample (K7);
+           K5 and K7 on random and on ray-ordered points;
            each kernel's device time per launch (torch.profiler) beside
            the time of a wrapper call (CUDA events), and for K4-K7 the
            time of `torch.nn.functional.grid_sample` computing the same
@@ -32,9 +33,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
            frames at 800^2: one warm-up step, then 5 timed steps of
            `make_train_step` (pool, two-pass denoise, render, loss, Adam);
            then the unfused model (sampler "fused"): a warm-up and 3 steps
-  check    one training step of a narrow model on the card and on the CPU
-           with the same injected draws: objective and gradients, fused
-           and unfused
+  check    one training step and a 24 px frame of a narrow model on the
+           card and on the CPU with the same injected draws: objective,
+           gradients and frame, fused, unfused, and at C 8 with default
+           arguments (which "auto" sends to the unfused decode: no
+           fused-decode launch)
   profile  device time by kernel and the device's idle share over one
            512^2 frame (fused and unfused), over 10 DDPM steps and over
            one training step (fused and unfused)
@@ -462,8 +465,10 @@ def sample_kernel_phase(model, results):
     """K4-K7 against their plain versions on the card, at the shapes the
     unfused paths give them: a fine render chunk (640 rays x 128 points)
     for the samples and the normals' field gradient, a training step's fine
-    pass (3 x 1024 rays x 128 points) for the cotangents; beside each, the
-    plain version's time and grid_sample's."""
+    pass (3 x 1024 rays x 128 points) for the cotangents; K5 and K7 also on
+    the same counts of ray-ordered points (`ray_ordered_points`), where
+    neighbours share cells; beside each, the plain version's time and
+    grid_sample's."""
     import torch
 
     from holo_diffusion_torch.ops import fused_render as fr
@@ -480,6 +485,11 @@ def sample_kernel_phase(model, results):
     grids = {c: torch.tanh(torch.randn((D, D, D, c), generator=gen, device=dev)) for c in (1, C, hidden + 1)}
     pts = {n: (torch.rand((n, 3), generator=gen, device=dev) * 2 - 1) * half for n in (n_chunk, n_train)}
     cots = {n: torch.randn((n, C), generator=gen, device=dev) for n in (n_chunk, n_train)}
+    # the same counts of points in depth order along rays, as render chunks
+    # and training passes hold them
+    ray_pts = {n: ray_ordered_points(gen, n // P, P, extent).reshape(-1, 3).contiguous()
+               for n, P in ((n_chunk, model.n_pts_per_ray_evaluation + model.n_pts_per_ray_fine_evaluation),
+                            (n_train, model.n_pts_per_ray_training + model.n_pts_per_ray_fine_training))}
     # entry point -> (kernel call, plain call, kernel name, TPU kernel)
     ops = {
         "kron_sample_fwd": (
@@ -499,17 +509,19 @@ def sample_kernel_phase(model, results):
             lambda g, p, cot: fr.trilinear_sample_onehot_reference(g, p, extent),
             "trilinear_sample_onehot_kernel", "holo_diffusion_tpu/ops/pallas/fused_render.py:69"),
     }
-    cases = [  # (case, entry point, cost kind, channels, points, random cotangent)
-        ("kron_sample_fwd", "kron_sample_fwd", "fwd", C, n_chunk, False),
-        ("c257", "kron_sample_fwd", "fwd", hidden + 1, n_chunk, False),
-        ("kron_sample_dgrid", "kron_sample_dgrid", "dgrid", C, n_train, True),
-        ("kron_sample_dpoints", "kron_sample_dpoints", "dpoints_ones", 1, n_chunk, False),
-        ("c64", "kron_sample_dpoints", "dpoints", C, n_train, True),
-        ("trilinear_sample_onehot", "trilinear_sample_onehot", "fwd", C, n_chunk, False),
+    cases = [  # (case, entry point, cost kind, channels, points, ray-ordered, random cotangent)
+        ("kron_sample_fwd", "kron_sample_fwd", "fwd", C, n_chunk, False, False),
+        ("c257", "kron_sample_fwd", "fwd", hidden + 1, n_chunk, False, False),
+        ("kron_sample_dgrid", "kron_sample_dgrid", "dgrid", C, n_train, False, True),
+        ("ray_ordered", "kron_sample_dgrid", "dgrid", C, n_train, True, True),
+        ("kron_sample_dpoints", "kron_sample_dpoints", "dpoints_ones", 1, n_chunk, False, False),
+        ("c64", "kron_sample_dpoints", "dpoints", C, n_train, False, True),
+        ("trilinear_sample_onehot", "trilinear_sample_onehot", "fwd", C, n_chunk, False, False),
+        ("ray_ordered", "trilinear_sample_onehot", "fwd", C, n_chunk, True, False),
     ]
-    for case, name, kind, c, n, random_cot in cases:
+    for case, name, kind, c, n, ray_ordered, random_cot in cases:
         fn, plain, kernel_name, replaces = ops[name]
-        args = (grids[c], pts[n], cots[n] if random_cot else None)
+        args = (grids[c], (ray_pts if ray_ordered else pts)[n], cots[n] if random_cot else None)
         with torch.no_grad():
             got, want = fn(*args), plain(*args)
             torch.cuda.synchronize()
@@ -548,7 +560,8 @@ def sample_kernel_phase(model, results):
             "library_ms": library_ms,
         }
         emit({"phase": "kernels", "case": case, **rec, "wrapper_ms": wrapper_ms, "points": n, "channels": c,
-              "active_corners": active, "bytes": n_bytes, "gflop": flops / 1e9, "scale": scale, "tol": tol,
+              "point_order": "ray_ordered" if ray_ordered else "random", "active_corners": active,
+              "bytes": n_bytes, "gflop": flops / 1e9, "scale": scale, "tol": tol,
               "library": f"torch.nn.functional.grid_sample ({lib_kind})", "library_max_abs_err": lib_err,
               "library_entries_beyond_1e-3_of_scale": lib_beyond, "ms_below_library_ms": ms < library_ms})
         if not err <= tol:
@@ -809,22 +822,26 @@ def expect_launches(counts, label, exactly=None, some=(), none=()):
             raise AssertionError(f"kernel {name} was launched on the {label} path")
 
 
-def train_check_phase(dev, variant, **model_args):
-    """One training step of a narrow model (C 32, UNet 32 channels, resnet18
-    stages 1-2, 2 x 128 rays; `model_args` such as fuse_decode="off") on the
-    card and on the CPU with the same weights and the same injected draws:
-    the objective and the gradients of the UNet's last conv, the
-    pooled-feature mapper, the density net's first layer and the
-    extractor's stem (each relative to its largest magnitude)."""
+def train_check_phase(dev, variant, feature_size=32, **model_args):
+    """One training step of a narrow model (C `feature_size`, UNet 32
+    channels, resnet18 stages 1-2, 2 x 128 rays; `model_args` such as
+    fuse_decode="off") on the card and on the CPU with the same weights and
+    the same injected draws: the objective and the gradients of the UNet's
+    last conv, the pooled-feature mapper, the density net's first layer and
+    the extractor's stem (each relative to its largest magnitude); then a
+    24 px frame of a random grid through the same model on both. Returns
+    the launch counts of the card's run."""
     import numpy as np
     import torch
 
     from holo_diffusion_torch.data.synthetic import make_synthetic_scene
     from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
+    from holo_diffusion_torch.render_eval import render_image_chunked
+    from holo_diffusion_torch.utils.flyaround import simple_360_cameras
     from holo_diffusion_torch.weights import init_weights
 
     toy = dict(
-        resol=8, volume_extent=4.0, feature_size=32, n_train_target_views=2, n_rays_per_image=128,
+        resol=8, volume_extent=4.0, feature_size=feature_size, n_train_target_views=2, n_rays_per_image=128,
         n_pts_per_ray_training=16, n_pts_per_ray_fine_training=16, scene_extent=2.0, render_normals=True,
         net_3d_args=dict(model_channels=32, num_res_blocks=1, channel_mult=(1, 2), attention_resolutions=(2,)),
         image_feature_extractor_args=dict(name_arch="resnet18", stages=(1, 2), proj_dim=8, image_rescale=0.5),
@@ -839,7 +856,7 @@ def train_check_phase(dev, variant, **model_args):
     B, N, P, F = 2, 128, 16, 16
     draws = {
         "timesteps": np.array([400, 90]), "take_boot": True,
-        "noise": rs.randn(1, 8, 8, 8, 32), "noise2": rs.randn(1, 8, 8, 8, 32),
+        "noise": rs.randn(1, 8, 8, 8, feature_size), "noise2": rs.randn(1, 8, 8, 8, feature_size),
         "ray_pixel_u": rs.rand(B, N), "ray_length_u": rs.rand(B, N, P), "density_noise_0": rs.randn(B, N, P),
         "refine_u_1": rs.rand(B, N, F), "density_noise_1": rs.randn(B, N, P + F),
     }
@@ -863,12 +880,25 @@ def train_check_phase(dev, variant, **model_args):
     largest = max(scale.values())
     worst = max((n for n in rel if scale[n] > 1e-6 * largest), key=rel.get)
     obj_err = abs(objs["card"] - objs["cpu"])
-    emit({"phase": "check", "variant": variant, "card_launches": launch_counts_all(), "objective": objs,
-          "objective_abs_err": obj_err,
+    grid = torch.tanh(torch.from_numpy(rs.randn(8, 8, 8, feature_size).astype(np.float32)))
+    cam = simple_360_cameras(1, dist=6.0)
+    with torch.no_grad():
+        frame = render_image_chunked(card_model.eval(), cam, grid.to(dev), device=dev, image_height=24,
+                                     image_width=24)
+        want = render_image_chunked(cpu_model.eval(), cam, grid, device="cpu", image_height=24, image_width=24)
+    counts = launch_counts_all()
+    render_err = {k: float((frame[k].cpu() - want[k]).abs().max()) for k in want}
+    finite = all(bool(torch.isfinite(x).all()) for x in frame.values())
+    emit({"phase": "check", "variant": variant, "channels": feature_size, "card_launches": counts,
+          "objective": objs, "objective_abs_err": obj_err,
           "grad_rel_errs": {n: rel[n] for n in gated}, "worst_leaf_above_1e-6_of_largest_grad": [worst, rel[worst]],
-          "tol": {"objective": TRAIN_OBJ_TOL, "grad_rel": TRAIN_GRAD_TOL}})
+          "render_24px_abs_err": render_err, "finite": finite,
+          "tol": {"objective": TRAIN_OBJ_TOL, "grad_rel": TRAIN_GRAD_TOL, "render": RENDER_TOL}})
     if obj_err > TRAIN_OBJ_TOL or max(rel[n] for n in gated) > TRAIN_GRAD_TOL:
         raise AssertionError(f"{variant}: card and CPU disagree beyond tolerance")
+    if not finite or set(frame) != set(want) or max(render_err.values()) > RENDER_TOL:
+        raise AssertionError(f"{variant}: the 24 px frame is not finite or disagrees with the CPU: {render_err}")
+    return counts
 
 
 def main():
@@ -1028,6 +1058,10 @@ def main():
         results[name]["train_launches"] = counts[name]
     train_check_phase(dev, "train_card_vs_cpu")
     train_check_phase(dev, "train_unfused_card_vs_cpu", sampler="fused", fuse_decode="off")
+    # the goldens' toy width, C 8, with default arguments: "auto" must pick
+    # the unfused decode, which the card takes at any C
+    counts = train_check_phase(dev, "train_c8_auto_card_vs_cpu", feature_size=8)
+    expect_launches(counts, "C 8 check", some=("kron_sample_fwd", "kron_sample_dgrid"), none=fd.ENTRY_POINTS)
 
     model.eval()
     unfused.eval()

@@ -16,160 +16,109 @@
 // What bounds them on the H100: memory traffic. Each output element takes
 // 8 fused multiply-adds; the grid (16^3 x 64 floats = 1 MiB, 4.2 MiB at
 // C = 257) stays in the 50 MB L2, so the device-memory bytes are the points,
-// the cotangents and the outputs. K5 adds 8 float atomics per (point,
-// channel) into the grid: 201 M per training fine pass at C = 64, resolved in
-// L2, which is its real limit.
+// the cotangents and the outputs. K5 adds into the grid with atomics,
+// resolved in L2: one per (point, corner, channel) would be 201 M per
+// training fine pass at C = 64, which is its real limit.
 //
 // What the design does about it: the TPU kernel is a Kronecker-factored
 // matrix product with the grid cotangent accumulated in VMEM across
-// sequential grid steps. Hopper has a gather and its blocks run in no order,
-// so each point is handled by a group of lanes that computes the point's 8
-// corners and walks its channels.
-//   * K5 (and K7 in fused_render.cu): G = the smallest power of two >= C,
-//     at most a warp, with consecutive lanes on consecutive channels of one
-//     corner: coalesced atomics (K5) for any C, one float at a time. Every
-//     lane recomputes the point's three divisions and 8 corners for C / G
-//     channels (2 at C 64). K5 scatters with atomicAdd into a zeroed grid
-//     (the sum order changes from run to run: not bit-reproducible).
-//   * K4 and K6 have fewer lanes with more channels each (K4: at least 8
-//     per lane in float4 units, 16 single, `sample_layout`; K6: about 16,
-//     `dpoints_layout`, both in ops/kron_sample.py), 32-bit cells, float4 channel units where
-//     C % 4 == 0 and both rows lie on 16-byte boundaries, and a scalar loop
-//     otherwise (C 257). Each lane computes the corners once and walks its
-//     units in register batches over the 8 corners, with no branch on a
-//     corner: one outside the grid reads cell 0 with weight 0, so all of a
-//     batch's loads can be in flight together. Lane l owns units l, l + G,
-//     ..., so the lanes of a point read (K4 also writes) consecutive units
-//     of a row. K6 loads its cotangent channels once into registers and
-//     reduces its three sums over the group in log2(G) shuffle rounds.
+// sequential grid steps. Hopper has a gather and its blocks run in no order.
+//   * K4 (and K7 in fused_render.cu) gather: `sample_gather::gather` of
+//     sample_gather.cuh, a point's G lanes (`sample_layout`) computing its
+//     corners once with 32-bit cells and walking float4 units (single
+//     floats where C % 4 != 0 or a row is unaligned, e.g. C 257).
+//   * K6 gives a point about 16 channels a lane (`dpoints_layout`), 32-bit
+//     cells, the same units and no branch on a corner (an outside one reads
+//     cell 0 with weight 0). Lane l owns units l, l + G, ...; it loads its
+//     cotangent channels once into registers and reduces its three sums over
+//     the group in log2(G) shuffle rounds.
+//   * K5 scatters: a block owns a tile of consecutive points
+//     (`DGRID_TILE_LOG2`) and stages their 8 corners (32-bit cells, hat
+//     weights; cell -1 outside the grid) and their cotangent rows (or a
+//     chunk of each row's units, at most 256 floats) in shared memory. Then
+//     a thread per (float4 unit, corner, run of consecutive points) walks
+//     its run in order, accumulates while the corner's cell stays the same
+//     and adds one atomic into d_grid each time the cell changes: on
+//     ray-ordered points, as training passes lay them out, neighbours share
+//     cells, so the atomics fall by the run's sharing as well as by the x4
+//     vector width. Units are single floats with scalar atomics where C % 4
+//     != 0 or a row is unaligned (C 257). The wrapper zeroes d_grid, and the
+//     atomic sums are taken in no fixed order: the result is not
+//     bit-reproducible.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sample_gather.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-struct Geometry {
-  long long n;        // points
-  int D, H, W, C;
-  int group_log2;     // lanes per point = 1 << group_log2
-  float voxel_size;   // extent / D
-};
-
-__device__ __forceinline__ float hat(float e) { return fmaxf(0.f, 1.f - fabsf(e)); }
+using namespace sample_gather;
 
 __device__ __forceinline__ float hat_slope(float e) {
   return fabsf(e) < 1.f ? (e > 0.f ? -1.f : (e < 0.f ? 1.f : 0.f)) : 0.f;
 }
 
-// The 8 corners of point i in (dz, dy, dx) order: flat cell (64-bit for K5,
-// 32-bit for K4) and hat weight; a corner outside the grid gets cell 0 and
-// weight 0.
-template <typename Cell>
-__device__ __forceinline__ void corners(const float* points, long long i,
-                                        const Geometry& g, Cell* cell, float* w) {
-  const float ix = points[3 * i + 0] / g.voxel_size + 0.5f * (g.W - 1);
-  const float iy = points[3 * i + 1] / g.voxel_size + 0.5f * (g.H - 1);
-  const float iz = points[3 * i + 2] / g.voxel_size + 0.5f * (g.D - 1);
-  const float x0 = floorf(ix), y0 = floorf(iy), z0 = floorf(iz);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float qx = x0 + (k & 1), qy = y0 + ((k >> 1) & 1), qz = z0 + (k >> 2);
-    const bool inside = qx >= 0.f && qx <= g.W - 1 && qy >= 0.f &&
-                        qy <= g.H - 1 && qz >= 0.f && qz <= g.D - 1;
-    const float hx = hat(ix - qx), hy = hat(iy - qy), hz = hat(iz - qz);
-    w[k] = inside ? hx * hy * hz : 0.f;
-    cell[k] = inside ? (static_cast<Cell>(qz) * g.H + static_cast<Cell>(qy)) * g.W +
-                           static_cast<Cell>(qx)
-                     : 0;
-  }
-}
-
-// Channel units: a float4 of channels 4u..4u+3 (VEC 4) or one channel.
-template <int VEC>
-struct Unit;
-template <>
-struct Unit<4> {
-  using T = float4;
-  static __device__ __forceinline__ float dot(const T& a, const T& b) {
-    return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
-  }
-  static __device__ __forceinline__ float sum(const T& a) { return (a.x + a.y) + (a.z + a.w); }
-  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  static __device__ __forceinline__ T fma(float w, const T& x, const T& acc) {
-    return make_float4(fmaf(w, x.x, acc.x), fmaf(w, x.y, acc.y), fmaf(w, x.z, acc.z),
-                       fmaf(w, x.w, acc.w));
-  }
-};
-template <>
-struct Unit<1> {
-  using T = float;
-  static __device__ __forceinline__ float dot(const T& a, const T& b) { return a * b; }
-  static __device__ __forceinline__ float sum(const T& a) { return a; }
-  static __device__ __forceinline__ T zero() { return 0.f; }
-  static __device__ __forceinline__ T fma(float w, const T& x, const T& acc) { return fmaf(w, x, acc); }
-};
-
-// K4: G = 1 << group_log2 lanes per point (`sample_layout`). Each lane
-// computes the point's corners once, then walks its units in batches of
-// BATCH (lane l owns units l, l + G, ...): a batch's accumulators stay in
-// registers across the 8 corners, summed in corner order as the plain
-// version does, and the lanes of a point store consecutive units of its
-// row (coalesced).
+// K4: the hat-weight gather of sample_gather.cuh
 template <int VEC, int BATCH>
 __global__ void __launch_bounds__(kThreads)
 kron_sample_fwd_kernel(const float* __restrict__ points, const float* __restrict__ grid,
                        float* __restrict__ out, const Geometry g) {
-  using U = Unit<VEC>;
-  using T = typename U::T;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long i = t >> g.group_log2;
-  const int lanes = 1 << g.group_log2;
-  const int lane = static_cast<int>(t & (lanes - 1));
-  if (i >= g.n) return;
-  int cell[8];
-  float w[8];
-  corners(points, i, g, cell, w);
-  const int units = g.C / VEC;
-  const T* grid_u = reinterpret_cast<const T*>(grid);
-  T* out_u = reinterpret_cast<T*>(out) + i * units;
-  for (int u0 = lane; u0 < units; u0 += BATCH * lanes) {
-    T acc[BATCH];
-#pragma unroll
-    for (int b = 0; b < BATCH; ++b) acc[b] = U::zero();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const T* row = grid_u + cell[k] * units;
-#pragma unroll
-      for (int b = 0; b < BATCH; ++b) {
-        const int u = u0 + b * lanes;
-        if (u < units) acc[b] = U::fma(w[k], __ldg(row + u), acc[b]);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < BATCH; ++b) {
-      const int u = u0 + b * lanes;
-      if (u < units) out_u[u] = acc[b];
-    }
-  }
+  gather<HatCorners, VEC, BATCH>(points, grid, out, g);
 }
 
+// K5's tiles: points per block, points per run (both powers of two, run <=
+// tile), and the units of a row that one block stages (blockIdx.y picks
+// the chunk)
+struct Tiles {
+  int tile_log2, run_log2, chunk;
+};
+
+template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 kron_sample_dgrid_kernel(const float* __restrict__ points, const float* __restrict__ cot,
-                         float* __restrict__ d_grid, const Geometry g) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long i = t >> g.group_log2;
-  const int lane = static_cast<int>(t & ((1 << g.group_log2) - 1));
-  if (i >= g.n) return;
-  long long cell[8];
-  float w[8];
-  corners(points, i, g, cell, w);
-  for (int c = lane; c < g.C; c += 1 << g.group_log2) {
-    const float v = __ldg(cot + i * g.C + c);
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (w[k] != 0.f) atomicAdd(d_grid + cell[k] * g.C + c, w[k] * v);
+                         float* __restrict__ d_grid, const Geometry g, const Tiles t) {
+  using U = Unit<VEC>;
+  using T = typename U::T;
+  extern __shared__ float4 smem4[];
+  const int tile = 1 << t.tile_log2;
+  const int units = g.C / VEC;
+  const int u0 = blockIdx.y * t.chunk;            // this block's units u0 .. u0 + cu - 1
+  const int cu = min(t.chunk, units - u0);
+  T* s_cot = reinterpret_cast<T*>(smem4);         // tile x cu cotangent units
+  int* s_cell = reinterpret_cast<int*>(s_cot + tile * t.chunk);  // tile x 8
+  float* s_w = reinterpret_cast<float*>(s_cell + 8 * tile);      // tile x 8
+  const long long base = static_cast<long long>(blockIdx.x) << t.tile_log2;
+  const int here = static_cast<int>(min(static_cast<long long>(tile), g.n - base));
+
+  for (int p = threadIdx.x; p < here; p += kThreads)
+    HatCorners::corners(points, base + p, g, s_cell + 8 * p, s_w + 8 * p, -1);
+  const T* cot_u = reinterpret_cast<const T*>(cot) + base * units + u0;
+  for (int e = threadIdx.x; e < here * cu; e += kThreads) {
+    const int p = e / cu, q = e - p * cu;
+    s_cot[e] = __ldg(cot_u + static_cast<long long>(p) * units + q);
+  }
+  __syncthreads();
+
+  // item = (run r, corner k, unit q), q fastest: a warp's atomics go to
+  // consecutive units of a cell's row
+  T* grid_u = reinterpret_cast<T*>(d_grid) + u0;
+  const int items = 8 * cu * (tile >> t.run_log2);
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int kr = it / cu, q = it - kr * cu, k = kr & 7, r = kr >> 3;
+    const int p_end = min((r + 1) << t.run_log2, here);
+    int cur = -1;
+    T acc = U::zero();
+    for (int p = r << t.run_log2; p < p_end; ++p) {
+      const int cell = s_cell[8 * p + k];
+      if (cell != cur) {
+        if (cur >= 0) atomicAdd(grid_u + cur * units + q, acc);
+        cur = cell;
+        acc = U::zero();
+      }
+      acc = U::fma(s_w[8 * p + k], s_cot[p * cu + q], acc);
+    }
+    if (cur >= 0) atomicAdd(grid_u + cur * units + q, acc);
   }
 }
 
@@ -263,40 +212,40 @@ kron_sample_dpoints_kernel(const float* __restrict__ points, const float* __rest
   }
 }
 
-Geometry make_geometry(long long n, int D, int H, int W, int C, int group_log2,
-                       float voxel_size) {
-  Geometry g;
-  g.n = n; g.D = D; g.H = H; g.W = W; g.C = C; g.group_log2 = group_log2;
-  g.voxel_size = voxel_size;
-  return g;
-}
-
-bool valid(const Geometry& g) {
-  return g.n >= 0 && g.D > 0 && g.H > 0 && g.W > 0 && g.C > 0 &&
-         g.group_log2 >= 0 && g.group_log2 <= 5;
-}
-
-unsigned blocks(const Geometry& g) {
-  return static_cast<unsigned>(((g.n << g.group_log2) + kThreads - 1) / kThreads);
-}
-
-// K4's batch: a lane's units held in registers at once, the next power of
-// two >= the units it owns, at most 4 float4 or 8 floats (a batch of 16
-// floats took 93 registers, 2 blocks per SM, and was slower at every G on
-// an H100)
 template <int VEC>
 cudaError_t launch_fwd(const float* points, const float* grid, float* out, const Geometry& g,
                        cudaStream_t s) {
-  const int lanes = 1 << g.group_log2;
-  const int per_lane = (g.C / VEC + lanes - 1) / lanes;
-  if (per_lane <= 1)
-    kron_sample_fwd_kernel<VEC, 1><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
-  else if (per_lane <= 2)
-    kron_sample_fwd_kernel<VEC, 2><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
-  else if (VEC == 4 || per_lane <= 4)
-    kron_sample_fwd_kernel<VEC, 4><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
-  else
-    kron_sample_fwd_kernel<1, 8><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
+  switch (batch(g, VEC)) {
+    case 1: kron_sample_fwd_kernel<VEC, 1><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g); break;
+    case 2: kron_sample_fwd_kernel<VEC, 2><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g); break;
+    case 4: kron_sample_fwd_kernel<VEC, 4><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g); break;
+    default: kron_sample_fwd_kernel<1, 8><<<blocks(g), kThreads, 0, s>>>(points, grid, out, g);
+  }
+  return cudaGetLastError();
+}
+
+// K5 at float4 units (VEC 4) or single floats: a block stages at most 256
+// floats of each of its tile's rows, the units shared evenly by the chunks
+template <int VEC>
+cudaError_t launch_dgrid(const float* points, const float* cot, float* d_grid, const Geometry& g,
+                         int tile_log2, int run_log2, cudaStream_t s) {
+  const int units = g.C / VEC;
+  const int max_chunk = 256 / VEC;
+  const int n_chunks = (units + max_chunk - 1) / max_chunk;
+  if (n_chunks > 65535) return cudaErrorInvalidValue;
+  Tiles t;
+  t.tile_log2 = tile_log2;
+  t.run_log2 = run_log2;
+  t.chunk = (units + n_chunks - 1) / n_chunks;
+  const size_t smem = (static_cast<size_t>(t.chunk) * VEC * 4 + 8 * 8) << tile_log2;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kron_sample_dgrid_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid_dims(static_cast<unsigned>(((g.n - 1) >> tile_log2) + 1), n_chunks);
+  kron_sample_dgrid_kernel<VEC><<<grid_dims, kThreads, smem, s>>>(points, cot, d_grid, g, t);
   return cudaGetLastError();
 }
 
@@ -307,26 +256,24 @@ extern "C" int kron_sample_fwd(const float* points, const float* grid, float* ou
                                int group_log2, float voxel_size, void* stream) {
   const Geometry g = make_geometry(n, D, H, W, C, group_log2, voxel_size);
   if (!valid(g)) return cudaErrorInvalidValue;
-  // 32-bit cell indices: every flat grid offset fits in an int
-  if (static_cast<long long>(D) * H * W * C >= (1LL << 31)) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // float4 units when every row of the grid and of the output starts on a
-  // 16-byte boundary; single channels otherwise
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  return vec4 ? launch_fwd<4>(points, grid, out, g, s) : launch_fwd<1>(points, grid, out, g, s);
+  return vec4_rows(C, grid, out) ? launch_fwd<4>(points, grid, out, g, s)
+                                 : launch_fwd<1>(points, grid, out, g, s);
 }
 
+// K5: tiles of 1 << tile_log2 points, runs of 1 << run_log2 (ops/kron_sample.py
+// `DGRID_TILE_LOG2`, `DGRID_RUN_LOG2`)
 extern "C" int kron_sample_dgrid(const float* points, const float* cot, float* d_grid,
                                  long long n, int D, int H, int W, int C,
-                                 int group_log2, float voxel_size, void* stream) {
-  const Geometry g = make_geometry(n, D, H, W, C, group_log2, voxel_size);
-  if (!valid(g)) return cudaErrorInvalidValue;
+                                 int run_log2, float voxel_size, int tile_log2, void* stream) {
+  const Geometry g = make_geometry(n, D, H, W, C, 0, voxel_size);
+  if (!valid(g) || run_log2 < 0 || run_log2 > tile_log2 || tile_log2 > 10)
+    return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  kron_sample_dgrid_kernel<<<blocks(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      points, cot, d_grid, g);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec4_rows(C, cot, d_grid) ? launch_dgrid<4>(points, cot, d_grid, g, tile_log2, run_log2, s)
+                                   : launch_dgrid<1>(points, cot, d_grid, g, tile_log2, run_log2, s);
 }
 
 extern "C" int kron_sample_dpoints(const float* points, const float* cot, const float* grid,
@@ -335,14 +282,11 @@ extern "C" int kron_sample_dpoints(const float* points, const float* cot, const 
                                    void* stream) {
   const Geometry g = make_geometry(n, D, H, W, C, group_log2, voxel_size);
   if (!valid(g)) return cudaErrorInvalidValue;
-  // 32-bit cell indices: every flat grid offset fits in an int
-  if (static_cast<long long>(D) * H * W * C >= (1LL << 31)) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // float4 units when every row of the grid and of the cotangent starts on
   // a 16-byte boundary; single channels otherwise
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(cot) % 16 == 0;
+  const bool vec4 = vec4_rows(C, grid, cot);
   // a batch of 8 channels per lane, or 1 unit where a lane owns no more
   const int units = vec4 ? C / 4 : C;
   const bool one = units <= (1 << group_log2);

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.fused_decode import fused_sample_decode
+from ..ops.fused_decode import fused_sample_decode, kernels_take
 from ..ops.fused_render import trilinear_sample_onehot_xla, trilinear_sample_pallas
 from ..ops.kron_sample import DEFAULT_MAX_GC, trilinear_point_gradient, trilinear_sample_fused
 from ..ops.voxel import pack_corner_grid, sample_packed_voxel_grid_world, sample_voxel_grid_world
@@ -45,8 +45,10 @@ class VoxelGridImplicitFunction(nn.Module):
 
     `sampler`, `collapse_density` and `fuse_decode` take the JAX package's
     values; "auto" resolves as it does there on its accelerator, on every
-    device: the fused decode when the decoder is fusable and D*H*W*C <=
-    DEFAULT_MAX_GC, else the layer-by-layer decode with the "fused" sampler
+    device: the fused decode when the decoder is fusable, D*H*W*C <=
+    DEFAULT_MAX_GC and the fused-decode kernels take the shape
+    (`ops.fused_decode.kernels_take`: C 32 or 64, hidden within their
+    shared memory), else the layer-by-layer decode with the "fused" sampler
     under the same size test ("packed" above it); no collapse.
     `sampler_precision` is accepted for the JAX signature and has no effect:
     every sampler computes in float32."""
@@ -105,7 +107,10 @@ class VoxelGridImplicitFunction(nn.Module):
         mlp = self.render_mlp
         fuse = self.fuse_decode
         if fuse == "auto":
-            fuse = "on" if mlp.decode_is_fusable and voxel_grid.numel() <= DEFAULT_MAX_GC else "off"
+            # the fused decode only where its kernels take the shape, on
+            # either device, so the CPU runs the branch the card would
+            fuse = "on" if (mlp.decode_is_fusable and voxel_grid.numel() <= DEFAULT_MAX_GC
+                            and kernels_take(voxel_grid.shape[-1], mlp.dnet_hidden_dim, mlp.pe_dim)) else "off"
         if fuse == "on":
             return self._fused_decode(voxel_grid, ray_points_world, ray_directions)
 

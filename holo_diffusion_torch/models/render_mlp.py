@@ -136,6 +136,11 @@ class RenderMLP(nn.Module):
     def encode_dirs(self, view_dirs: torch.Tensor) -> torch.Tensor:
         return self._dir_encoder(view_dirs)
 
+    @property
+    def pe_dim(self) -> int:
+        """Width of `encode_dirs`' output: the radiance layer's extra inputs."""
+        return self._dir_encoder.get_output_dim(3)
+
     def radiance_linear(self):
         """(kernel (hidden + pe_dim, 3), bias (3,)) of the radiance layer."""
         lin = self._radiance_net.linear(0)

@@ -23,7 +23,9 @@ from .kron_sample import check_flat_index, kron_sample_dpoints_reference
 from .voxel import continuous_indices, sample_voxel_grid_world
 
 NEG_SLOPE = 0.2  # torch.nn.LeakyReLU(0.2)
-SUPPORTED_CHANNELS = (32, 64)  # template instantiations in the CUDA source
+SUPPORTED_CHANNELS = (32, 64)  # template instantiations in the CUDA sources
+# dynamic shared memory one block may opt into on sm_90 (H100), in bytes
+SMEM_OPTIN_BYTES = 232_448
 ENTRY_POINTS = ("fused_decode_fwd", "fused_decode_fwd_normals", "fused_decode_bwd")
 
 _launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
@@ -36,6 +38,37 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+def fwd_smem_bytes(C: int, hidden: int, pe_dim: int) -> int:
+    """Dynamic shared memory of K1/K3 (`csrc/fused_decode.cu` `Layout`):
+    A split into TF32 hi/lo, c, the radiance rows, pe rows, br, and 16
+    warps' 16-point s tiles."""
+    n_cols = -(-(hidden + 1) // 16) * 16
+    return 4 * (2 * C * n_cols + n_cols + 4 * n_cols + 4 * pe_dim + 4 + 16 * 16 * (C + 4))
+
+
+def bwd_smem_bytes(C: int, hidden: int, pe_dim: int) -> int:
+    """Dynamic shared memory of K2 (`csrc/fused_decode_bwd.cu` `Layout`,
+    32-point tiles)."""
+    n_cols, tile = -(-(hidden + 1) // 8) * 8, 32
+    words = (2 * C * n_cols + n_cols + -(-(3 * (hidden + pe_dim + 1)) // 4) * 4
+             + 2 * tile * (C + 4) + tile * (n_cols + 4) + 2 * tile * (C + 4)
+             + 2 * 2 * 8 * tile + 2 * 4 * tile + -(-(tile * pe_dim) // 4) * 4)
+    return 4 * words
+
+
+def kernels_take(C: int, hidden: int, pe_dim: int) -> bool:
+    """True where K1, K3 and K2 all launch: C is one the kernels are built
+    for, both layouts fit a block's shared memory, and K2's column checks
+    hold (`fused_decode_bwd.cu` `launch`: hidden + 1 padded to 8 at most
+    320 columns, and a thread each for the columns, the pe rows and dbr of
+    its 512). At pe_dim 27 that is hidden <= 279 at C 64, <= 319 at C 32."""
+    n_cols = -(-(hidden + 1) // 8) * 8
+    return (C in SUPPORTED_CHANNELS
+            and fwd_smem_bytes(C, hidden, pe_dim) <= SMEM_OPTIN_BYTES
+            and bwd_smem_bytes(C, hidden, pe_dim) <= SMEM_OPTIN_BYTES
+            and n_cols <= 320 and n_cols + pe_dim + 1 <= 512)
 
 
 def _lrelu(x):

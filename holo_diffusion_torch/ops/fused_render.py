@@ -5,7 +5,8 @@ holo_diffusion_tpu/ops/pallas/fused_render.py), forward only.
 of `csrc/fused_render.cu` (K7) for CUDA tensors, or raises; for CPU tensors
 it runs the plain version `trilinear_sample_onehot_reference`. On the TPU
 the kernel is a one-hot matrix product on the MXU; on the H100 it is an
-8-corner gather (see the CUDA source). It has no backward, as the JAX
+8-corner gather on K4's layout (`kron_sample.sample_layout`; see the CUDA
+source). It has no backward, as the JAX
 function has no VJP: asking it for a gradient raises.
 `trilinear_sample_onehot_xla` is the one-hot product itself in plain
 PyTorch, as the JAX package keeps it in plain XLA.
@@ -17,7 +18,7 @@ from typing import Dict
 
 import torch
 
-from .kron_sample import check_operands, group_log2, on_cpu
+from .kron_sample import check_flat_index, check_operands, on_cpu, sample_layout
 from .voxel import continuous_indices, sample_voxel_grid_world
 
 ENTRY_POINTS = ("trilinear_sample_onehot",)
@@ -55,6 +56,7 @@ def _library():
 def _sample_cuda(grid: torch.Tensor, points: torch.Tensor, extent: float) -> torch.Tensor:
     D, H, W, C = grid.shape
     check_operands(points, C, grid=grid)
+    check_flat_index(grid.shape)
     grid, points = grid.contiguous(), points.contiguous()
     n = points.shape[0]
     out = torch.empty((n, C), dtype=torch.float32, device=points.device)
@@ -63,7 +65,7 @@ def _sample_cuda(grid: torch.Tensor, points: torch.Tensor, extent: float) -> tor
             stream = torch.cuda.current_stream(points.device).cuda_stream
             err = _library().trilinear_sample_onehot(
                 points.data_ptr(), grid.data_ptr(), out.data_ptr(), n, D, H, W, C,
-                group_log2(C), float(extent) / D, stream)
+                sample_layout(C)[0], float(extent) / D, stream)
         if err != 0:
             raise RuntimeError(f"trilinear_sample_onehot launch failed: cudaError {err}")
         _launches["trilinear_sample_onehot"] += 1

@@ -112,12 +112,6 @@ def kron_sample_dpoints_reference(
 # ---- the CUDA kernels
 
 
-def group_log2(C: int) -> int:
-    """log2 of the lanes that share one point in K5 and K7: the smallest
-    power of two >= C, at most a warp (32)."""
-    return min(5, max(0, (C - 1).bit_length()))
-
-
 # channels a K6 lane owns: 16 (4 lanes per point at C 64) was the fastest
 # of G = 2..32 at C 64 on an H100 (`kernel_sweep.py`)
 DPOINTS_LANE_CHANNELS = 16
@@ -140,7 +134,7 @@ def dpoints_layout(C: int) -> Tuple[int, int]:
 
 
 def sample_layout(C: int) -> Tuple[int, int]:
-    """K4's layout: (log2 of the lanes per point, channels per unit). G is
+    """K4's and K7's layout: (log2 of the lanes per point, channels per unit). G is
     the largest power of two, at most a warp, that leaves each lane at least
     SAMPLE_LANE_CHANNELS[unit] channels (1 lane at C < 32, 4 at C 64, 8 at
     C 257); units as `dpoints_layout`'s, and lane l owns units l, l + G,
@@ -150,8 +144,20 @@ def sample_layout(C: int) -> Tuple[int, int]:
     return min(5, max(0, (C // SAMPLE_LANE_CHANNELS[vec]).bit_length() - 1)), vec
 
 
+# K5's layout, the same at every C: a block stages 2^6 = 64 consecutive
+# points' corners and cotangent rows (at most 256 floats of each row; a
+# second chunk of blocks takes the rest, C 257), and a thread per (unit,
+# corner, run of 2^5 = 32 points) adds one atomic each time its corner's
+# cell changes along the run; units as `dpoints_layout`'s. Of tiles 32..256
+# and runs 8..32 at C 64 on an H100 (`kernel_sweep.py` k5), the fastest on
+# ray-ordered points, as training passes hold them; on uniformly random
+# points, where runs merge nothing, within 3 % of the best
+DGRID_TILE_LOG2, DGRID_RUN_LOG2 = 6, 5
+
+
 def check_flat_index(grid_shape) -> None:
-    """K4, K6 (and the fused decode) index the grid with 32-bit offsets."""
+    """The sampling kernels (and the fused decode) index the grid with
+    32-bit offsets."""
     n = 1
     for d in grid_shape:
         n *= int(d)
@@ -187,7 +193,8 @@ def _library():
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         geom = [i64, i32, i32, i32, i32, i32, f32]  # n, D, H, W, C, group_log2, voxel_size
         lib.kron_sample_fwd.argtypes = [ptr, ptr, ptr] + geom + [ptr]
-        lib.kron_sample_dgrid.argtypes = [ptr, ptr, ptr] + geom + [ptr]
+        # K5 takes log2 of its run in group_log2's place, then log2 of its tile
+        lib.kron_sample_dgrid.argtypes = [ptr, ptr, ptr] + geom + [i32, ptr]
         lib.kron_sample_dpoints.argtypes = [ptr, ptr, ptr, ptr] + geom + [f32, ptr]
         for name in ENTRY_POINTS:
             getattr(lib, name).restype = i32
@@ -195,13 +202,14 @@ def _library():
     return lib
 
 
-def _launch(name: str, pointers, grid_shape, n: int, extent: float, *tail, device, lanes_log2=None):
+def _launch(name: str, pointers, grid_shape, n: int, extent: float, *tail, device, layout_log2: int):
+    """Launch entry point `name`; `layout_log2` is log2 of the lanes per
+    point (K4, K6) or of K5's run."""
     D, H, W, C = grid_shape
-    lanes_log2 = group_log2(C) if lanes_log2 is None else lanes_log2
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_library(), name)(
-            *pointers, n, D, H, W, C, lanes_log2, float(extent) / D, *tail, stream)
+            *pointers, n, D, H, W, C, layout_log2, float(extent) / D, *tail, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _launches[name] += 1
@@ -217,18 +225,20 @@ def _fwd_cuda(grid, points, extent):
     if points.shape[0] > 0:
         _launch("kron_sample_fwd", (points.data_ptr(), grid.data_ptr(), out.data_ptr()),
                 grid.shape, points.shape[0], extent, device=points.device,
-                lanes_log2=sample_layout(grid.shape[-1])[0])
+                layout_log2=sample_layout(grid.shape[-1])[0])
     return out
 
 
 def _dgrid_cuda(points, g, grid_shape, extent):
     check_operands(points, grid_shape[-1], g=g)
+    check_flat_index(grid_shape)
     points, g = points.contiguous(), g.contiguous()
     # the kernel adds into a zeroed grid with atomics
     d_grid = torch.zeros(tuple(grid_shape), dtype=torch.float32, device=points.device)
     if points.shape[0] > 0:
         _launch("kron_sample_dgrid", (points.data_ptr(), g.data_ptr(), d_grid.data_ptr()),
-                grid_shape, points.shape[0], extent, device=points.device)
+                grid_shape, points.shape[0], extent, DGRID_TILE_LOG2, device=points.device,
+                layout_log2=DGRID_RUN_LOG2)
     return d_grid
 
 
@@ -243,7 +253,7 @@ def _dpoints_cuda(grid, points, g, extent):
         g_ptr = None if g is None else g.data_ptr()
         _launch("kron_sample_dpoints", (points.data_ptr(), g_ptr, grid.data_ptr(), out.data_ptr()),
                 grid.shape, points.shape[0], extent, grid.shape[0] / float(extent), device=points.device,
-                lanes_log2=dpoints_layout(grid.shape[-1])[0])
+                layout_log2=dpoints_layout(grid.shape[-1])[0])
     return out
 
 

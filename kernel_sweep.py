@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Layout, locality and cost-split sweeps of the port's kernels on one GPU.
 
-    python3 kernel_sweep.py [--only k4,k2,k6,decode]
+    python3 kernel_sweep.py [--only k4,k2,k6,decode,k5,k7,samplers]
 
 Each section runs in a process of its own.
 
@@ -24,14 +24,29 @@ Prints one JSON line per measurement, then the card's name and power limit:
   decode  the fused decode K1/K3 at both render chunks (640 rays x 64 and
           x 128 points) on random points and in grid-cell order: how much of
           its time the gather's locality sets
-Each result is checked against the plain version (K4 1e-4 absolute, K6
-1e-4 of its scale, K1/K3 1e-4 absolute, K2 1e-3 of each cotangent's scale,
-as `chip_smoke.py`) after its line is printed; device time per launch from
-torch.profiler (`chip_smoke.device_ms_per_launch`). Needs a CUDA device.
+  k5      the grid cotangent K5 (`kron_sample_dgrid`) at C 64 over a
+          hydrant training fine pass (3 x 1024 rays x 128 points), random
+          and ray-ordered, at every tile of 32..256 points and run of 8..32
+          (the kernel takes any; the port launches `DGRID_TILE_LOG2`/`_RUN_LOG2`)
+  k7      the one-hot-formulation sample K7 (`trilinear_sample_onehot`) at
+          C 64 over a fine render chunk (640 x 128 points), random and
+          ray-ordered, at every lanes-per-point G in 1..32 (the port
+          launches `sample_layout`'s)
+  samplers  K5 and K7 through their wrappers (`kron_sample_dgrid`,
+          `trilinear_sample_pallas`) on both point sets at those shapes:
+          the section to run in a copy of an earlier version of the port,
+          beside this one, to time two designs in one call
+Each result is checked against the plain version (K4 and K7 1e-4
+absolute, K5 and K6 1e-4 of their scale, K1/K3 1e-4 absolute, K2 1e-3 of
+each cotangent's scale, as `chip_smoke.py`) after its line is printed;
+device time per launch from torch.profiler
+(`chip_smoke.device_ms_per_launch`). Needs a CUDA device.
 """
 import argparse
 import subprocess
 import sys
+
+SOURCES = ["kron_sample", "fused_decode", "fused_decode_bwd", "fused_render"]
 
 
 def main():
@@ -41,7 +56,7 @@ def main():
         print("kernel_sweep.py: no CUDA device", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser()
-    parser.add_argument("--only", default="k4,k2,k6,decode")
+    parser.add_argument("--only", default="k4,k2,k6,decode,k5,k7,samplers")
     opts = parser.parse_args()
     sections = opts.only.split(",")
     if len(sections) > 1:
@@ -49,7 +64,7 @@ def main():
         # one process torch.profiler recorded 17 of 20 launches, every time
         from holo_diffusion_torch.ops import _build
 
-        _build.build(["kron_sample", "fused_decode", "fused_decode_bwd"])
+        _build.build(SOURCES)
         for section in sections:
             rc = subprocess.run([sys.executable, __file__, "--only", section]).returncode
             if rc != 0:
@@ -61,11 +76,12 @@ def main():
     from holo_diffusion_torch.device import set_full_precision
     from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.ops import fused_render as fr
     from holo_diffusion_torch.ops import kron_sample as ks
     from holo_diffusion_torch.ops.voxel import hat_corners
 
     set_full_precision()
-    _build.build(["kron_sample", "fused_decode", "fused_decode_bwd"])
+    _build.build(SOURCES)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     D, C, hidden, extent = 16, 64, 256, 8.0
@@ -85,7 +101,7 @@ def main():
                     def call():
                         out = torch.empty((R * P, c), device=dev)
                         ks._launch("kron_sample_fwd", (pts.data_ptr(), g_c.data_ptr(), out.data_ptr()),
-                                   g_c.shape, R * P, extent, device=dev, lanes_log2=lanes_log2)
+                                   g_c.shape, R * P, extent, device=dev, layout_log2=lanes_log2)
                         return out
                     err = float((call() - want).abs().max())
                     ms = device_ms_per_launch(call, "kron_sample_fwd_kernel")
@@ -134,7 +150,7 @@ def main():
                 def call():
                     out = torch.empty_like(p)
                     ks._launch("kron_sample_dpoints", (p.data_ptr(), g.data_ptr(), grid.data_ptr(), out.data_ptr()),
-                               grid.shape, n, extent, D / extent, device=dev, lanes_log2=lanes_log2)
+                               grid.shape, n, extent, D / extent, device=dev, layout_log2=lanes_log2)
                     return out
                 err = float((call() - want).abs().max())
                 ms = device_ms_per_launch(call, "kron_sample_dpoints_kernel")
@@ -169,6 +185,70 @@ def main():
                           "ms": ms, "max_abs_err": err, "tol": KERNEL_TOL})
                     if not err <= KERNEL_TOL:
                         raise AssertionError(f"decode ({label}, P {P}): {err}")
+
+    # ---- K5 and K7 on random and ray-ordered points: their layouts, and
+    # the wrappers alone (the section an earlier version runs too)
+    if only & {"k5", "k7", "samplers"}:
+        gen5 = torch.Generator(device=dev).manual_seed(8)
+        sets = {}
+        for label, R, P in (("train", 3 * 1024, 128), ("chunk", 640, 128)):
+            sets[label] = {
+                "random": (torch.rand((R * P, 3), generator=gen5, device=dev) * 2 - 1) * 0.6 * extent,
+                "ray_ordered": ray_ordered_points(gen5, R, P, extent).reshape(-1, 3).contiguous()}
+        cot = torch.randn((3 * 1024 * 128, C), generator=gen5, device=dev)
+
+        def check_dgrid(label, pts, got, want, **rec):
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            emit({"points": label, "n": pts.shape[0], "channels": C, "max_abs_err": err,
+                  "tol": SAMPLE_COT_TOL * scale, **rec})
+            if not err <= SAMPLE_COT_TOL * scale:
+                raise AssertionError(f"K5 ({label}, {rec}): {err}")
+
+        def check_sample(label, pts, got, want, **rec):
+            err = float((got - want).abs().max())
+            emit({"points": label, "n": pts.shape[0], "channels": C, "max_abs_err": err, "tol": SAMPLE_TOL, **rec})
+            if not err <= SAMPLE_TOL:
+                raise AssertionError(f"K7 ({label}, {rec}): {err}")
+
+        for label, pts in sets["train"].items():
+            want = ks.kron_sample_dgrid_reference(pts, cot, grid.shape, extent)
+            if "samplers" in only:
+                call = lambda: ks.kron_sample_dgrid(pts, cot, grid.shape, extent)  # noqa: E731
+                ms = device_ms_per_launch(call, "kron_sample_dgrid_kernel")
+                check_dgrid(label, pts, call(), want, sweep="samplers", kernel="kron_sample_dgrid", ms=ms)
+            if "k5" in only:
+                for tile_log2 in range(5, 9):
+                    for run_log2 in range(3, 6):
+                        def call():
+                            out = torch.zeros(grid.shape, device=dev)
+                            ks._launch("kron_sample_dgrid", (pts.data_ptr(), cot.data_ptr(), out.data_ptr()),
+                                       grid.shape, pts.shape[0], extent, tile_log2, device=dev,
+                                       layout_log2=run_log2)
+                            return out
+                        ms = device_ms_per_launch(call, "kron_sample_dgrid_kernel")
+                        check_dgrid(label, pts, call(), want, sweep="k5", tile=1 << tile_log2, run=1 << run_log2,
+                                    port_layout=(tile_log2, run_log2) == (ks.DGRID_TILE_LOG2, ks.DGRID_RUN_LOG2),
+                                    ms=ms)
+        for label, pts in sets["chunk"].items():
+            want = fr.trilinear_sample_onehot_reference(grid, pts, extent)
+            if "samplers" in only:
+                call = lambda: fr.trilinear_sample_pallas(grid, pts, extent)  # noqa: E731
+                ms = device_ms_per_launch(call, "trilinear_sample_onehot_kernel")
+                check_sample(label, pts, call(), want, sweep="samplers", kernel="trilinear_sample_onehot", ms=ms)
+            if "k7" in only:
+                lib = fr._library()
+                for lanes_log2 in range(0, 6):
+                    def call():
+                        out = torch.empty((pts.shape[0], C), device=dev)
+                        err = lib.trilinear_sample_onehot(
+                            pts.data_ptr(), grid.data_ptr(), out.data_ptr(), pts.shape[0], D, D, D, C, lanes_log2,
+                            extent / D, torch.cuda.current_stream(dev).cuda_stream)
+                        assert err == 0, err
+                        return out
+                    ms = device_ms_per_launch(call, "trilinear_sample_onehot_kernel")
+                    check_sample(label, pts, call(), want, sweep="k7", lanes=1 << lanes_log2,
+                                 port_layout=lanes_log2 == ks.sample_layout(C)[0], ms=ms)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)

@@ -220,6 +220,83 @@ def test_auto_modes_resolve_as_on_the_accelerator():
         VoxelGridImplicitFunction(fuse_decode="yes")
 
 
+# ---- "auto" takes the fused decode only where its kernels launch
+
+PE_DIM = 27  # dir_emb_dims 4: 3 x (2 x 4 + 1), every repo config
+
+
+@pytest.mark.parametrize("C_, hidden, takes", [
+    (8, 256, False), (32, 256, True), (64, 256, True), (257, 256, False),
+    (64, 279, True), (64, 280, False), (64, 303, False), (64, 304, False),
+], ids=["C8", "C32", "C64", "C257", "C64_h279", "C64_h280", "C64_h303", "C64_h304"])
+def test_fused_decode_kernels_take_only_their_shapes(C_, hidden, takes):
+    """`kernels_take`: C 32 or 64, and both K1/K3's and K2's shared memory
+    within the 227 KB a block may opt into. At C 64, K2's edge is hidden
+    279 and K1/K3's 303, so 280-303 run forward only and "auto" refuses
+    them."""
+    assert fd.kernels_take(C_, hidden, PE_DIM) == takes
+    if C_ == 64 and hidden in (279, 280):
+        assert (fd.bwd_smem_bytes(C_, hidden, PE_DIM) <= fd.SMEM_OPTIN_BYTES) == (hidden == 279)
+    if C_ == 64 and hidden in (303, 304):
+        assert (fd.fwd_smem_bytes(C_, hidden, PE_DIM) <= fd.SMEM_OPTIN_BYTES) == (hidden == 303)
+
+
+def test_decode_shared_memory_as_the_kernels_report_it():
+    """The hydrant layouts (C 64, hidden 256) as ptxas and the launches
+    report them on an H100: K1/K3 214,784 bytes, K2 217,328; at C 32 the
+    backward's column limit (320) refuses hidden 320 before its memory."""
+    assert fd.fwd_smem_bytes(64, 256, PE_DIM) == 214_784
+    assert fd.bwd_smem_bytes(64, 256, PE_DIM) == 217_328
+    assert fd.kernels_take(32, 319, PE_DIM) and not fd.kernels_take(32, 320, PE_DIM)
+    assert fd.bwd_smem_bytes(32, 320, PE_DIM) <= fd.SMEM_OPTIN_BYTES
+
+
+def _resolved_decode(fn, grid):
+    """Which branch `fn` takes on `grid`: "fused_decode" or "sample"."""
+    calls = []
+    fn._fused_decode = lambda *a: calls.append("fused_decode") or (None, None, {})
+    fn._sample = lambda g, p, _s=fn._sample: calls.append("sample") or _s(g, p)
+    pts = torch.zeros((1, 2, 3))
+    with torch.no_grad():
+        fn(grid, pts, torch.ones((1, 3)))
+    return calls[0]
+
+
+@pytest.mark.parametrize("model, hidden, want", [
+    ("toy", None, "sample"), ("hydrant", None, "fused_decode"),
+    ("hydrant", 279, "fused_decode"), ("hydrant", 280, "sample"),
+], ids=["toy_C8", "hydrant_C64", "hydrant_h279", "hydrant_h280"])
+def test_auto_resolves_by_the_kernels_predicate(model, hidden, want):
+    """On the CPU, "auto" takes the branch the card would: the golden toy
+    model (tests/test_torch_train_step.py TOY, C 8) decodes layer by layer,
+    as does hydrant with a 280-wide density net (K2 cannot launch); hydrant
+    itself, and at hidden 279, the fused decode."""
+    if model == "toy":
+        from torch_toy_model import TOY as GOLDEN_TOY
+
+        fn = HoloDiffusionModel(**{**GOLDEN_TOY, "view_pooler_enabled": False}).implicit_function
+        grid = torch.zeros((8, 8, 8, 8))
+    else:
+        args = model_args_from_config(load_config("hydrant"))
+        mlp = {**args["render_mlp_args"], **({} if hidden is None else {"dnet_hidden_dim": hidden})}
+        fn = VoxelGridImplicitFunction(resol=args["resol"], volume_extent=args["volume_extent"],
+                                       n_hidden=args["feature_size"], render_mlp_args=mlp)
+        grid = torch.zeros((16, 16, 16, args["feature_size"]))
+    assert fn.fuse_decode == "auto" and fn.render_mlp.decode_is_fusable
+    assert _resolved_decode(fn, grid) == want
+
+
+def test_auto_fused_decode_matches_jax():
+    """A fusable decoder at C 32, hidden 48 (which the kernels take) with
+    "auto": the port takes the fused decode's plain version, the JAX package
+    on the CPU its layer-by-layer decode; the same function, at the
+    tolerances above."""
+    assert fd.kernels_take(C, MLP["dnet_hidden_dim"], PE_DIM)
+    _check_against_jax(True, MLP, sampler="fused", fuse_decode="auto")
+    fn = VoxelGridImplicitFunction(resol=D, volume_extent=EXTENT, n_hidden=C, render_mlp_args=MLP)
+    assert _resolved_decode(fn, torch.zeros((D, D, D, C))) == "fused_decode"
+
+
 # ---- a narrow model with sampler="fused", fuse_decode="off"
 
 B, N_RAYS, N_PTS, N_FINE = 2, 24, 8, 6

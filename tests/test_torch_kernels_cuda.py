@@ -465,3 +465,182 @@ def test_synthetic_scene_defaults_to_the_card():
 
     scene = make_synthetic_scene(n_views=2, image_size=8)
     assert scene.image_rgb.device.type == "cuda" and scene.camera.R.device.type == "cuda"
+
+
+# ---- K7 on K4's layout and K5's run-merged scatter, at every layout they take
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 8, 64, 257])
+def test_onehot_sample_kernel_matches_plain_by_channels(C):
+    """K7 at every layout of `sample_layout` on random points, on points
+    exactly on x voxel planes and the grid's faces, and beyond the grid
+    (exactly 0): 1e-5 absolute."""
+    dev = _device()
+    grid, pts, _ = _sample_inputs(37, 16, C, 6000, dev)
+    on_plane, far = (x.to(dev) for x in _lattice_points(16, 38))
+    before = fr.launch_counts()["trilinear_sample_onehot"]
+    for name, p in (("random", pts), ("on_plane", on_plane), ("outside", far)):
+        got = fr.trilinear_sample_pallas(grid, p, EXTENT)
+        want = fr.trilinear_sample_onehot_reference(grid, p, EXTENT)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5, msg=name)
+        if name == "outside":
+            assert bool((got == 0).all()), "zero outside the grid"
+    assert fr.launch_counts()["trilinear_sample_onehot"] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 257])
+def test_onehot_sample_kernel_takes_strided_empty_and_unaligned_input(C):
+    """K7 on strided points gives the contiguous result; no points launch
+    nothing; a grid view off a 16-byte boundary takes single channels at
+    C 64, with the float4 path's result."""
+    dev = _device()
+    grid, pts, _ = _sample_inputs(39, 16, C, 3000, dev)
+    before = fr.launch_counts()
+    assert fr.trilinear_sample_pallas(grid, pts[:0], EXTENT).shape == (0, C)
+    assert fr.launch_counts() == before
+    strided = pts.t().contiguous().t()
+    want = fr.trilinear_sample_pallas(grid, pts, EXTENT)
+    torch.testing.assert_close(fr.trilinear_sample_pallas(grid, strided, EXTENT), want, rtol=0, atol=0)
+    backing = torch.empty(grid.numel() + 1, device=dev)
+    shifted = backing[1:].view(grid.shape)
+    shifted.copy_(grid)
+    assert shifted.data_ptr() % 16 != 0
+    torch.testing.assert_close(fr.trilinear_sample_pallas(shifted, pts, EXTENT), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 8, 64, 257])
+def test_dgrid_kernel_matches_plain_by_channels(C):
+    """K5 with float4 units (C 8, 64), single floats (C 1, 3) and two
+    chunks of a row's units (C 257), on random points, on points exactly on
+    x voxel planes and the grid's faces, and beyond the grid (exactly 0):
+    1e-4 of scale (atomics in no fixed order)."""
+    dev = _device()
+    _, pts, cot = _sample_inputs(40, 16, C, 6000, dev)
+    on_plane, far = (x.to(dev) for x in _lattice_points(16, 41))
+    before = ks.launch_counts()["kron_sample_dgrid"]
+    for name, p in (("random", pts), ("on_plane", on_plane), ("outside", far)):
+        g = cot[:p.shape[0]]
+        got = ks.kron_sample_dgrid(p, g, (16, 16, 16, C), EXTENT)
+        want = ks.kron_sample_dgrid_reference(p, g, (16, 16, 16, C), EXTENT)
+        torch.cuda.synchronize()
+        if name == "outside":
+            assert bool((got == 0).all()) and bool((want == 0).all()), "nothing outside the grid"
+        else:
+            _assert_rel_close(got, want, 1e-4, f"d_grid C {C} {name}")
+    assert ks.launch_counts()["kron_sample_dgrid"] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 257])
+def test_dgrid_kernel_takes_strided_empty_and_unaligned_input(C):
+    """K5 on strided points gives the contiguous result up to the atomics'
+    order; no points launch nothing and give zeros; a cotangent view off a
+    16-byte boundary takes single floats at C 64 with the float4 result."""
+    dev = _device()
+    _, pts, cot = _sample_inputs(42, 16, C, 3000, dev)
+    shape = (16, 16, 16, C)
+    before = ks.launch_counts()
+    empty = ks.kron_sample_dgrid(pts[:0], cot[:0], shape, EXTENT)
+    assert ks.launch_counts() == before and bool((empty == 0).all())
+    want = ks.kron_sample_dgrid(pts, cot, shape, EXTENT)
+    _assert_rel_close(ks.kron_sample_dgrid(pts.t().contiguous().t(), cot, shape, EXTENT), want, 1e-6, "strided")
+    backing = torch.empty(cot.numel() + 1, device=dev)
+    shifted = backing[1:].view(cot.shape)
+    shifted.copy_(cot)
+    assert shifted.data_ptr() % 16 != 0
+    _assert_rel_close(ks.kron_sample_dgrid(pts, shifted, shape, EXTENT), want, 1e-6, "unaligned cotangent")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", ["ray_ordered", "one_voxel"])
+def test_dgrid_kernel_where_points_share_cells(points):
+    """K5 at C 64 where consecutive points share corner cells, so runs merge
+    their atomics: 48 rays of 128 points in depth order, and 4,096 points
+    in one voxel, where one run covers each whole tile (1e-4 of scale)."""
+    dev = _device()
+    pts = (_ray_points(43, 48, 128) if points == "ray_ordered" else _one_voxel_points(43, 32, 128, 16))
+    pts = pts.reshape(-1, 3).to(dev)
+    cot = torch.randn((pts.shape[0], 64), generator=torch.Generator().manual_seed(44)).to(dev)
+    got = ks.kron_sample_dgrid(pts, cot, (16, 16, 16, 64), EXTENT)
+    want = ks.kron_sample_dgrid_reference(pts, cot, (16, 16, 16, 64), EXTENT)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    _assert_rel_close(got, want, 1e-4, points)
+
+
+# ---- "auto" against what the fused-decode kernels launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [279, 280])
+def test_auto_fused_decode_launches_only_what_the_kernels_take(hidden):
+    """At C 64 with a 279-wide density net `kernels_take` holds and a
+    forward and backward through "auto" launch K3 and K2; at 280 K2 cannot
+    launch, so "auto" decodes layer by layer (K4, K5, K6) and no
+    fused-decode kernel runs. Gradients as the plain path's on the CPU:
+    1e-3 of scale."""
+    from holo_diffusion_torch.models.implicit import VoxelGridImplicitFunction
+    from holo_diffusion_torch.weights import init_weights
+
+    dev = _device()
+    fn = init_weights(VoxelGridImplicitFunction(
+        resol=16, volume_extent=EXTENT, n_hidden=64, render_normals=True,
+        render_mlp_args=dict(dnet_hidden_dim=hidden, rnet_hidden_dim=16)), seed=0)
+    assert fd.kernels_take(64, hidden, fn.render_mlp.pe_dim) == (hidden == 279)
+    grid, _, _ = _sample_inputs(45, 16, 64, 1, dev)
+    pts = _ray_points(46, 8, 32)
+    dirs = torch.randn((8, 3), generator=torch.Generator().manual_seed(47))
+    grads = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        f = fn.to(d)
+        f.zero_grad()
+        g = grid.to(d).clone().requires_grad_(True)
+        before = {**fd.launch_counts(), **ks.launch_counts()}
+        dens, rgb, _ = f(g, pts.to(d), dirs.to(d))
+        (dens.square().sum() + rgb.sum()).backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            after = {**fd.launch_counts(), **ks.launch_counts()}
+            launched = {k for k in after if after[k] > before[k]}
+            if hidden == 279:
+                assert launched == {"fused_decode_fwd_normals", "fused_decode_bwd"}
+            else:
+                assert launched == {"kron_sample_fwd", "kron_sample_dgrid", "kron_sample_dpoints"}
+        grads[label] = [g.grad.cpu()] + [p.grad.cpu() for p in f.parameters()]
+    for a, b in zip(grads["card"], grads["cpu"]):
+        _assert_rel_close(a, b, 1e-3, "gradient")
+
+
+@pytest.mark.cuda
+def test_golden_toy_model_renders_on_the_card_with_default_arguments():
+    """The goldens' toy model (C 8, default fuse_decode) renders on the card:
+    "auto" takes the layer-by-layer decode, K4 samples, no fused-decode
+    kernel launches, and the frame is the CPU's within 2e-3."""
+    from torch_toy_model import TOY
+
+    from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
+    from holo_diffusion_torch.render_eval import render_image_chunked
+    from holo_diffusion_torch.utils.flyaround import simple_360_cameras
+    from holo_diffusion_torch.weights import init_weights
+
+    dev = _device()
+    model = init_weights(HoloDiffusionModel(**TOY), seed=0).eval()
+    grid = torch.tanh(torch.randn((8, 8, 8, 8), generator=torch.Generator().manual_seed(48)))
+    cam = simple_360_cameras(1, dist=4.0)
+    before = {**fd.launch_counts(), **ks.launch_counts()}
+    with torch.no_grad():
+        card = render_image_chunked(model.to(dev), cam, grid.to(dev), device=dev)
+        torch.cuda.synchronize()
+        after = {**fd.launch_counts(), **ks.launch_counts()}
+        cpu = render_image_chunked(model.cpu(), cam, grid, device="cpu")
+    assert all(after[k] == before[k] for k in fd.ENTRY_POINTS)
+    assert after["kron_sample_fwd"] > before["kron_sample_fwd"]
+    assert set(card) == set(cpu)
+    for k in cpu:
+        assert bool(torch.isfinite(card[k]).all())
+        torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=0, atol=2e-3, msg=k)

@@ -1,9 +1,10 @@
 """The arithmetic of the fused decode's tensor-core products, pinned on the
 CPU before the card runs it: the forward's affine (`csrc/fused_decode.cu`)
 and the backward's dA = s^T d_pre and d_s = d_pre A^T
-(`csrc/fused_decode_bwd.cu`); the lane layouts of the sampling kernels K4
-and K6 (`ops/kron_sample.py:sample_layout`, `dpoints_layout`); and the
-kernels' build keys (`ops/_build.py`).
+(`csrc/fused_decode_bwd.cu`); the lane layouts of the sampling kernels K4,
+K7 and K6 (`ops/kron_sample.py:sample_layout`, `dpoints_layout`), and K5's
+tiles and its run-merged scatter (`DGRID_TILE_LOG2`), emulated in the
+kernel's order; and the kernels' build keys (`ops/_build.py`).
 
 The kernel computes pre = s @ A + c with mma.sync TF32 products in the
 3 x TF32 split: each float32 operand x = hi + lo with hi = tf32(x) and
@@ -15,19 +16,34 @@ difference every kernel-vs-plain tolerance already covers. Inputs are shaped
 as `chip_smoke.py`'s: the hydrant decoder (64 channels, 256 hidden units,
 seeded weights) on a tanh(randn) 16^3 x 64 grid, points inside and beyond it.
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
 from holo_diffusion_torch.models.render_mlp import RenderMLP
+from holo_diffusion_torch.ops import fused_render as fr
 from holo_diffusion_torch.ops import kron_sample as ks
-from holo_diffusion_torch.ops.voxel import sample_voxel_grid_world
+from holo_diffusion_torch.ops.voxel import continuous_indices, hat_corners, sample_voxel_grid_world
 from holo_diffusion_torch.weights import init_weights
 
 # the port's float32 contract: `test_torch_kernels_cuda.py` holds K1/K3 to 1e-5
 TOL = 1e-5
 EXTENT, D, C, HIDDEN = 8.0, 16, 64, 256
+
+
+def _chip_smoke():
+    """The repository root's `chip_smoke.py`, imported without the card."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    return chip_smoke
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -146,8 +162,8 @@ def test_dpoints_layout_covers_every_channel_once(C_):
     # up to the unit, and more lanes only where a lane would own more than 16
     assert max(len(o) for o in owned) <= -(-C_ // (G * vec)) * vec
     assert G == 1 or -(-C_ // (G // 2)) > ks.DPOINTS_LANE_CHANNELS
-    # K4, K5 and K7 keep their own layout: the smallest power of two >= C
-    assert ks.group_log2(C_) == {1: 0, 2: 1, 3: 2, 4: 2, 8: 3, 64: 5, 257: 5}[C_]
+    # K4 and K7 share `sample_layout`
+    assert fr.sample_layout is ks.sample_layout
 
 
 def test_sample_layout_at_the_shapes_the_port_runs():
@@ -271,17 +287,7 @@ def test_backward_errors_apart_from_near_zero_pre_activations():
     within 1e-6 of 0 and holds d_grid apart from the corner cells of their
     points: an error in such a cell leaves that measure at 0, an error in a
     cell no such point reaches shows in it."""
-    import pathlib
-    import sys
-
-    from holo_diffusion_torch.ops.voxel import sample_voxel_grid_world
-
-    root = pathlib.Path(__file__).resolve().parent.parent
-    sys.path.insert(0, str(root))
-    try:
-        from chip_smoke import decode_bwd_errors
-    finally:
-        sys.path.remove(str(root))
+    decode_bwd_errors = _chip_smoke().decode_bwd_errors
     rs = np.random.RandomState(4)
     D, C_, extent = 4, 8, 4.0
     grid = torch.from_numpy(rs.randn(D, D, D, C_).astype(np.float32))
@@ -303,3 +309,98 @@ def test_backward_errors_apart_from_near_zero_pre_activations():
         assert near_zero == 1
         assert rel["d_grid"] > 0 and rel["dA"] == rel["dc"] == 0
         assert (away == rel["d_grid"]) if apart else away == 0
+
+
+# ---- K5's tiles and its run-merged scatter
+
+
+@pytest.mark.parametrize("C_", [1, 3, 8, 64, 257])
+def test_dgrid_layout_fits_a_block(C_):
+    """K5 (`launch_dgrid`): whole runs in a tile, and a block's shared
+    memory (each staged row at most 256 floats, split evenly into chunks,
+    plus 8 cells and weights a point) within the 48 KB a block gets without
+    opting in."""
+    tile_log2, run_log2 = ks.DGRID_TILE_LOG2, ks.DGRID_RUN_LOG2
+    assert 0 <= run_log2 <= tile_log2 <= 10
+    vec = 4 if C_ % 4 == 0 else 1
+    units = C_ // vec
+    n_chunks = -(-units // (256 // vec))
+    chunk = -(-units // n_chunks)
+    assert chunk * vec <= 256 and (n_chunks - 1) * chunk < units <= n_chunks * chunk
+    assert (chunk * vec * 4 + 8 * 8) << tile_log2 <= 48 * 1024
+
+
+def run_merged_dgrid(points, g, grid_shape, extent, run):
+    """K5's scatter as `kron_sample_dgrid_kernel` walks it: consecutive
+    points in runs of `run` (a tile holds whole runs, so tiles do not
+    matter); for each run and corner, the weighted cotangent rows summed in
+    point order while the corner's cell stays the same, and one addition
+    into d_grid each time the cell changes (none for a corner outside the
+    grid, cell -1). Returns (d_grid, the additions per channel unit)."""
+    D_, H, W, C_ = grid_shape
+    cells, hats, _ = hat_corners(points, D_, H, W, extent)
+    w = hats.prod(-1)
+    base = [torch.floor(i) for i in continuous_indices(points, D_, H, W, extent)]
+    inside = torch.stack([
+        (base[0] + (k & 1) >= 0) & (base[0] + (k & 1) <= W - 1)
+        & (base[1] + ((k >> 1) & 1) >= 0) & (base[1] + ((k >> 1) & 1) <= H - 1)
+        & (base[2] + (k >> 2) >= 0) & (base[2] + (k >> 2) <= D_ - 1) for k in range(8)], dim=-1)
+    cells = torch.where(inside, cells, -1)
+    n = points.shape[0]
+    pad = -n % run  # past the last point: cell -1, as if the run ended there
+    cells = F.pad(cells, (0, 0, 0, pad), value=-1).reshape(-1, run, 8)
+    w = F.pad(w, (0, 0, 0, pad)).reshape(-1, run, 8)
+    g = F.pad(g, (0, 0, 0, pad)).reshape(-1, run, C_)
+    d_grid = torch.zeros((D_ * H * W, C_), dtype=g.dtype)
+    cur = torch.full(cells[:, 0].shape, -1)
+    acc = torch.zeros(cur.shape + (C_,), dtype=g.dtype)
+    adds = 0
+
+    def flush(mask):
+        nonlocal adds
+        m = mask & (cur >= 0)
+        d_grid.index_add_(0, cur[m], acc[m])
+        adds += int(m.sum())
+
+    for j in range(run):
+        change = cells[:, j] != cur
+        flush(change)
+        acc = torch.where(change[..., None], torch.zeros_like(acc), acc)
+        cur = torch.where(change, cells[:, j], cur)
+        acc = acc + w[:, j, :, None] * g[:, j, None, :]
+    flush(torch.ones_like(cur, dtype=torch.bool))
+    return d_grid.reshape(grid_shape), adds
+
+
+@pytest.mark.parametrize("C_", [8, 64])
+@pytest.mark.parametrize("points", ["random", "ray_ordered", "one_voxel"])
+def test_run_merged_scatter_is_the_grid_cotangent(points, C_):
+    """The run-merged scatter equals `kron_sample_dgrid_reference` within
+    1e-6 of scale on 3,072 points (24 rays of 128 depths, as a training
+    pass lays them out, or the same number uniformly random, or all in one
+    voxel), both in float64, so that only the merge rule and not the
+    summation order can move the result. On ray-ordered points it adds less
+    than half as often as on random ones; in one voxel once per run and
+    corner."""
+    gen = torch.Generator().manual_seed(8)
+    R, P = 24, 128
+    if points == "ray_ordered":
+        pts = _chip_smoke().ray_ordered_points(gen, R, P, EXTENT).reshape(-1, 3)
+    elif points == "random":
+        pts = (torch.rand((R * P, 3), generator=gen) * 2 - 1) * 0.6 * EXTENT
+    else:
+        vs = EXTENT / D
+        pts = (torch.tensor([5.0, 7.0, 9.0]) - 0.5 * (D - 1) + 0.05 + 0.9 * torch.rand((R * P, 3), generator=gen)) * vs
+    g = torch.randn((R * P, C_), generator=gen)
+    pts, g = pts.double(), g.double()
+    run = 1 << ks.DGRID_RUN_LOG2
+    got, adds = run_merged_dgrid(pts, g, (D, D, D, C_), EXTENT, run)
+    want = ks.kron_sample_dgrid_reference(pts, g, (D, D, D, C_), EXTENT)
+    scale = float(want.abs().max())
+    assert scale > 0 and float((got - want).abs().max()) <= 1e-6 * scale
+    runs = -(-R * P // run)
+    if points == "one_voxel":
+        assert adds == 8 * runs
+    elif points == "ray_ordered":
+        random_pts = (torch.rand((R * P, 3), generator=gen, dtype=torch.float64) * 2 - 1) * 0.6 * EXTENT
+        assert adds < 0.5 * run_merged_dgrid(random_pts, g, (D, D, D, C_), EXTENT, run)[1]

@@ -20,6 +20,7 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 
 from test_holo_forward_parity import GOLD  # noqa: E402
+from torch_toy_model import TOY  # noqa: E402
 
 from holo_diffusion_torch.data.synthetic import make_synthetic_scene  # noqa: E402
 from holo_diffusion_torch.geometry.cameras import PerspectiveCameras  # noqa: E402
@@ -31,23 +32,6 @@ from holo_diffusion_torch.weights import init_weights, state_dict_from_reference
 
 BGOLD = np.load(os.path.join(os.path.dirname(__file__), "goldens", "holo_backward_goldens.npz"))
 
-# the toy model of tests/test_holo_forward_parity.py::_model in the port's terms
-TOY = dict(
-    resol=8, volume_extent=3.0, feature_size=8, num_passes=2,
-    net_3d_args=dict(model_channels=32, num_res_blocks=1, channel_mult=(1, 2), attention_resolutions=(2,),
-                     num_heads=2, use_scale_shift_norm=True, homogeneous_resample=True),
-    enable_bootstrap=True, bootstrap_prob=0.5, render_image_height=16, render_image_width=16,
-    n_train_target_views=2, n_pts_per_ray_training=8, n_pts_per_ray_evaluation=8, n_rays_per_image=64,
-    n_pts_per_ray_fine_training=4, n_pts_per_ray_fine_evaluation=4,
-    stratified_point_sampling_training=False, density_noise_std_train=0.0, scene_extent=1.5,
-    image_feature_extractor_args=dict(name_arch="resnet18", stages=(1,), proj_dim=4, image_rescale=0.5,
-                                      first_max_pool=True, l2_norm=True, add_masks=True, add_images=True,
-                                      normalize_image=True),
-    view_pooler_args=dict(aggregator_class_type="MLPMeanFeatureAggregator",
-                          aggregator_args=dict(n_hidden=16, dim_out=12, n_layers=1, n_harmonic_functions_ray=3)),
-    render_mlp_args=dict(dir_emb_dims=4, dnet_num_layers=4, dnet_hidden_dim=16, dnet_input_skips=(2,),
-                         rnet_num_layers=1, rnet_hidden_dim=16),
-)
 # reference state_dict prefix -> the port's (weights.state_dict_from_reference)
 _TO_REFERENCE = (("net_3d.", "net_3d._net."), ("implicit_function.", "_implicit_functions.0._fn."))
 
