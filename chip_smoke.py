@@ -41,20 +41,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
   profile  device time by kernel and the device's idle share over one
            512^2 frame (fused and unfused), over 10 DDPM steps and over
            one training step (fused and unfused)
+  train_loop  the training loop at hydrant width (`Experiment` on 2
+           synthetic scenes of 33 frames at 800^2, 2 steps an epoch, a
+           512^2 validation frame after each epoch, a checkpoint with
+           purge 1): run A trains 2 epochs; a new Experiment restores
+           epoch 1, which must equal run A's final state bitwise, and
+           runs epoch 2 only; then `generate_samples_main exp_dir=...`
+           samples (10 DDIM steps) and renders a frame from the checkpoint,
+           held against the same grid rendered by run B's model
   kernels summary, the card's name and power limit, and the result line.
-Four main paths, each with the launch counters zeroed right before it and
+Five main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
 K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
-steps, which must launch K3 and K2) and unfused training (K4, K5 and K6,
-no K1/K2/K3). Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
+steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
+no K1/K2/K3) and the training loop (runs A and B: K2 twice a step, K3
+twice a step and 820 times a validation frame, no K1 or K4-K7). Float32
+stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import copy
+import gc
 import json
+import logging
 import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 CUDA-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -697,7 +712,8 @@ def profile_phase(model, unfused, v, dev, train_step_fn, unfused_train_step_fn):
     work), over one 512^2 fly-around frame of the fused and of the unfused
     (sampler "fused") model, over 10 DDPM steps and over one hydrant
     training step of each (`train_step_fn`, `unfused_train_step_fn`), with
-    the port's kernels' share of the busy time."""
+    the port's kernels' share of the busy time. Returns the device busy ms
+    by window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -707,6 +723,7 @@ def profile_phase(model, unfused, v, dev, train_step_fn, unfused_train_step_fn):
     from holo_diffusion_torch.utils.flyaround import simple_360_cameras
 
     cam = simple_360_cameras(1)
+    busy = {}
     windows = {
         "render_frame": lambda: render_image_chunked(model, cam, v[0], device=dev),
         "render_frame_unfused": lambda: render_image_chunked(unfused, cam, v[0], device=dev),
@@ -742,6 +759,8 @@ def profile_phase(model, unfused, v, dev, train_step_fn, unfused_train_step_fn):
               "idle_share": 1.0 - busy_ms / wall_ms, "device_launches": sum(r[2] for r in rows),
               "port_kernels": decode,
               "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:10]]})
+        busy[label] = busy_ms
+    return busy
 
 
 def synthetic_batch(cfg, dev):
@@ -899,6 +918,173 @@ def train_check_phase(dev, variant, feature_size=32, **model_args):
     if not finite or set(frame) != set(want) or max(render_err.values()) > RENDER_TOL:
         raise AssertionError(f"{variant}: the 24 px frame is not finite or disagrees with the CPU: {render_err}")
     return counts
+
+
+class _Records(logging.Handler):
+    """Keeps the log records of one logger (the checkpoint module logs each
+    save's bytes and seconds and each restore's seconds)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def read_png_rgb(path):
+    """An (H, W, 3) uint8 frame from a PNG of `utils/video.py:write_png`
+    (8-bit RGB, filter 0 on every row)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a PNG row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def train_loop_phase(here, dev, train_step_busy_ms, results):
+    """The training loop at hydrant width through its entry points: run A
+    (`Experiment(cfg).run(max_epochs=2)`), a new Experiment whose restored
+    state must equal run A's final state bitwise, run B (`run(max_epochs=3)`,
+    which must resume and run epoch 2 only), then `generate_samples_main
+    exp_dir=...` from the checkpoint, whose frame must match the same grid
+    rendered by run B's model. The launch counters are zeroed before run A
+    and read after run B (the loop's main path), and again around sampling."""
+    import numpy as np
+    import torch
+
+    from holo_diffusion_torch import cli
+    from holo_diffusion_torch.config import load_config
+    from holo_diffusion_torch.experiment import Experiment
+    from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.render_eval import render_image_chunked
+    from holo_diffusion_torch.train.checkpoint import list_checkpoints, restore_checkpoint
+    from holo_diffusion_torch.utils.flyaround import CANONICAL_CO3D_UP_AXIS, simple_360_cameras
+
+    exp_dir = os.path.join(here, "build", "chip_smoke", "exp")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    ds = "data_source_ImplicitronDataSource_args."
+    syn = ds + "dataset_map_provider_SyntheticDataProvider_args."
+    dl = ds + "data_loader_map_provider_SequenceDataLoaderMapProvider_args."
+    cfg = load_config("hydrant", [
+        ds + "dataset_map_provider_class_type=SyntheticDataProvider",
+        syn + "n_scenes=2", syn + "n_views_per_scene=33", syn + "image_size=800",
+        dl + "batch_size=33", dl + "dataset_length_train=66", dl + "dataset_length_val=1",
+        "disable_validation=false", "training_loop_ImplicitronTrainingLoop_args.visualize_interval=0",
+        f"exp_dir={exp_dir}"])
+    ck_log = logging.getLogger("holo_diffusion_torch.train.checkpoint")
+    ck_log.setLevel(logging.INFO)
+    records = _Records()
+    ck_log.addHandler(records)
+
+    reset_launch_counts_all()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exp_a = Experiment(cfg)
+    state_a, stats_a = exp_a.run(max_epochs=2)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+
+    # the state a resumed run starts from, before any step: bitwise run A's
+    exp_b = Experiment(cfg)
+    probe, epoch = restore_checkpoint(exp_dir, exp_b.init_state())
+    if epoch != 1 or probe.step != 4 or probe.optimizer.steps != 4:
+        raise AssertionError(f"restored epoch {epoch}, step {probe.step}, schedule {probe.optimizer.steps}")
+    differ = [k for k, v in state_a.model.state_dict().items() if not torch.equal(v, probe.model.state_dict()[k])]
+    moments_a = state_a.optimizer.optimizer.state_dict()["state"]
+    moments_b = probe.optimizer.optimizer.state_dict()["state"]
+    differ += [f"adam {i} {n}" for i, m in moments_a.items() for n in ("exp_avg", "exp_avg_sq", "step")
+               if not torch.equal(m[n], moments_b[i][n])]
+    n_moments = len(moments_a)
+    if differ or set(moments_a) != set(moments_b) or not n_moments:
+        raise AssertionError(f"restored state differs from run A's: {differ[:5]}")
+    del state_a, exp_a, probe, moments_a, moments_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    state_b, stats = exp_b.run(max_epochs=3)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    counts = launch_counts_all()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    model = state_b.model
+    left = [e for e, _ in list_checkpoints(exp_dir)]
+    if left != [2] or state_b.step != 6 or state_b.optimizer.steps != 6 or stats.epoch != 2:
+        raise AssertionError(f"run B: checkpoints {left}, step {state_b.step}, "
+                             f"schedule {state_b.optimizer.steps}, epoch {stats.epoch}")
+    if [e["epoch"] for e in stats.history] != [0, 1, 2] or any("val" not in e for e in stats.history):
+        raise AssertionError(f"stats history: {[sorted(e) for e in stats.history]}")
+    steps = state_b.step
+    frame_launches = model.num_passes * math.ceil(
+        model.render_image_height * model.render_image_width
+        / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
+    emit({"phase": "main_path", "path": "train_loop", "launches": counts})
+    expect_launches(counts, "training loop",
+                    exactly={"fused_decode_bwd": 2 * steps,
+                             "fused_decode_fwd_normals": 2 * steps + 3 * frame_launches},
+                    none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["fused_decode_bwd"]["train_loop_launches"] = counts["fused_decode_bwd"]
+    results["fused_decode_fwd_normals"]["train_loop_launches"] = counts["fused_decode_fwd_normals"]
+
+    # serve from the checkpoint
+    out_dir = os.path.join(here, "build", "chip_smoke", "serve_checkpoint")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    reset_launch_counts_all()
+    t0 = time.perf_counter()
+    paths = cli.generate_samples_main([f"exp_dir={exp_dir}", "num_samples=1", "n_flyaround_poses=1",
+                                       "use_ddim=true", "max_iter=10", f"output_directory={out_dir}",
+                                       "save_voxel_features=true"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_counts = launch_counts_all()
+    emit({"phase": "main_path", "path": "serve_checkpoint", "launches": serve_counts})
+    expect_launches(serve_counts, "serving from the checkpoint", exactly={"fused_decode_fwd_normals": frame_launches},
+                    none=("fused_decode_bwd", "fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    grid = torch.from_numpy(np.load(os.path.join(out_dir, "sample_00000", "voxel_features.npy"))).to(dev)
+    png = read_png_rgb(os.path.join(out_dir, "sample_00000", "images_render_frames", "frame_00000.png"))
+    with torch.no_grad():
+        cam = simple_360_cameras(1, up=CANONICAL_CO3D_UP_AXIS)
+        frame = render_image_chunked(model.eval(), cam, grid[0], device=dev)["images_render"].cpu().numpy()
+    finite = bool(np.isfinite(frame).all())
+    in_range = finite and float(frame.min()) >= 0.0 and float(frame.max()) <= 1.0
+    png_err = int(np.abs(png.astype(np.int32) - (frame * 255).astype(np.int32)).max()) if finite else None
+    ck = {"saves": [{"bytes": r.args[1], "s": r.args[2]} for r in records.records if r.msg.startswith("saved")],
+          "restores_s": [r.args[1] for r in records.records if r.msg.startswith("restored")]}
+    ck_log.removeHandler(records)
+    sec_per_it = [e["train"]["sec/it"] for e in stats.history]
+    emit({"phase": "train_loop", "epochs": 3, "steps": steps, "frames": 33, "image_size": 800,
+          "params": sum(p.numel() for p in model.parameters()), "adam_tensors": n_moments,
+          "s_per_step_stats": sec_per_it, "run_wall_s": {"A_epochs_0_1": wall_a, "B_epoch_2": wall_b},
+          "val_frame_s": [e["val"]["sec/it"] for e in stats.history],
+          "train_loss_rgb_psnr": [e["train"]["loss_rgb_psnr"] for e in stats.history],
+          "val_loss_rgb_psnr": [e["val"]["loss_rgb_psnr"] for e in stats.history],
+          "checkpoint": ck, "max_memory_allocated_gib": peak_gib,
+          "train_step_busy_ms_profile": train_step_busy_ms,
+          "idle_share_steps": [1.0 - train_step_busy_ms / (1e3 * s) for s in sec_per_it],
+          "serve_checkpoint": {"s": serve_s, "ddim_steps": 10, "streams": sorted(paths["sample_00000"]),
+                               "frame_finite": finite, "frame_in_0_1": in_range, "png_vs_rerender_max": png_err}})
+    if not in_range or png_err is None or png_err > 1:
+        raise AssertionError(f"frame from the checkpoint: finite {finite}, in [0, 1] {in_range}, png {png_err}")
+    if not all(math.isfinite(x) for e in stats.history for x in e["train"].values()):
+        raise AssertionError("non-finite training metrics")
+    if len(ck["saves"]) != 3 or len(ck["restores_s"]) != 3:
+        raise AssertionError(f"checkpoint log: {ck}")
 
 
 def main():
@@ -1065,7 +1251,13 @@ def main():
 
     model.eval()
     unfused.eval()
-    profile_phase(model, unfused, v, dev, train_step_fn, unfused_step_fn)
+    busy = profile_phase(model, unfused, v, dev, train_step_fn, unfused_step_fn)
+
+    # ---- the training loop main path, on a card freed of the models above
+    del model, model_k1, unfused, batch, train_step_fn, unfused_step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_loop_phase(here, dev, busy["train_step"], results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)

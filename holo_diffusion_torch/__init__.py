@@ -11,7 +11,10 @@ render, whose implicit function is one hand-written CUDA kernel
 (`csrc/fused_decode.cu`). Slice 2 covers one training step
 (`parallel/train_step.py`): view pooling, the bootstrapped denoise, the
 training render and loss, backward through the decode's backward kernel
-(`csrc/fused_decode_bwd.cu`), and the optimizer step.
+(`csrc/fused_decode_bwd.cu`), and the optimizer step. Later slices add the
+unfused implicit function (`csrc/kron_sample.cu`, `csrc/fused_render.cu`)
+and the training loop (`experiment.py`: synthetic data, stats, checkpoints
+with resume, `utils/checkpoint_utils.py:load_experiment`, `cli.train_main`).
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,25 @@
-"""Sample CLI of the port (counterpart of holo_diffusion_tpu/cli.py
-`generate_samples_main`): sample voxel grids and render fly-around videos.
+"""Train and sample CLIs of the port (counterparts of
+holo_diffusion_tpu/cli.py `train_main` and `generate_samples_main`).
 
+Train (resumes from the last checkpoint in exp_dir when run again):
+
+    python -m holo_diffusion_torch.cli train --config-name synthetic_debug.yaml \\
+        --max-epochs 3 exp_dir=./out seed=7 [--device cpu]
+
+Sample grids and render fly-around videos, from a trained exp_dir or from a
+config with `.npz` weights (a seeded random init without `weights=`):
+
+    python -m holo_diffusion_torch.cli exp_dir=./out num_samples=2 use_ddim=true max_iter=50
     python -m holo_diffusion_torch.cli config=hydrant weights=model.npz \\
         num_samples=2 render_size=[512,512] n_flyaround_poses=40 seed=0
 
-Arguments are key=value (values parse as YAML). Keys with a dot are dotted
-config overrides. Without `weights=` the model gets a seeded random init.
-Runs on CUDA unless `device=cpu`; float32 stays full float32 (TF32 off).
+Sample arguments are key=value (values parse as YAML); keys with a dot are
+dotted config overrides. Both run on CUDA unless given the CPU
+(`--device cpu`, `device=cpu`); float32 stays full float32 (TF32 off).
 """
 from __future__ import annotations
 
+import argparse
 import logging
 import os
 import sys
@@ -20,9 +30,29 @@ import yaml
 
 from .config import load_config, model_args_from_config
 from .device import resolve_device, set_full_precision
+from .experiment import Experiment
 from .models.holo_model import HoloDiffusionModel
+from .utils.checkpoint_utils import load_experiment
 from .utils.flyaround import render_flyaround
 from .weights import init_weights, load_weights
+
+
+def train_main(argv: Optional[List[str]] = None):
+    """Train (or resume) the experiment a config describes; returns
+    (state, stats)."""
+    parser = argparse.ArgumentParser(description="Train the port's HoloDiffusion model.")
+    parser.add_argument("--config-name", default="base.yaml")
+    parser.add_argument("--config-dir", default=None)
+    parser.add_argument("--max-epochs", type=int, default=None)
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="accepted for the JAX CLI's sake; training here is single-device")
+    parser.add_argument("--device", default=None, help="torch device (default: CUDA)")
+    parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    set_full_precision()
+    cfg = load_config(args.config_name, args.overrides, args.config_dir)
+    return Experiment(cfg, device=args.device).run(max_epochs=args.max_epochs)
 
 
 def build_model(
@@ -49,10 +79,14 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
         else:
             opts[k] = yaml.safe_load(v)
 
-    config = opts.pop("config", "hydrant")
+    exp_dir = opts.pop("exp_dir", None)
+    config = opts.pop("config", None)
     weights = opts.pop("weights", None)
+    if exp_dir is not None and (config is not None or weights is not None):
+        raise ValueError("give exp_dir= or config=/weights=, not both")
     num_samples = int(opts.pop("num_samples", 1))
-    output_directory = opts.pop("output_directory", "samples")
+    output_directory = opts.pop("output_directory",
+                                "samples" if exp_dir is None else os.path.join(exp_dir, "samples"))
     render_size = opts.pop("render_size", None)
     n_flyaround_poses = int(opts.pop("n_flyaround_poses", 40))
     trajectory_distance = float(opts.pop("trajectory_distance", 15.0))
@@ -66,11 +100,14 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
         raise ValueError(f"unknown args: {list(opts)}")
 
     set_full_precision()
-    model = build_model(config, overrides, render_size)
-    if weights:
-        load_weights(model, weights)
+    if exp_dir is not None:
+        model = load_experiment(exp_dir, overrides, render_size, device=device)[1].model
     else:
-        init_weights(model, seed)
+        model = build_model(config or "hydrant", overrides, render_size)
+        if weights:
+            load_weights(model, weights)
+        else:
+            init_weights(model, seed)
     model.to(device).eval()
 
     results = {}
@@ -94,4 +131,7 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
 
 
 if __name__ == "__main__":
-    generate_samples_main()
+    if sys.argv[1:2] == ["train"]:
+        train_main(sys.argv[2:])
+    else:
+        generate_samples_main()

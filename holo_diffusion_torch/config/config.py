@@ -1,7 +1,8 @@
 """Config loading (port of holo_diffusion_tpu/config/config.py): YAML files
 with single-parent `_extends_`, dotted `a.b.c=value` overrides, the model
-kwargs of `HoloDiffusionModel`, and the optimizer and gradient-clip settings
-of training.
+kwargs of `HoloDiffusionModel`, the optimizer and gradient-clip settings,
+the training loop's and the data source's settings, the `expconfig.yaml`
+snapshot, and the audit of config keys that nothing reads.
 """
 from __future__ import annotations
 
@@ -14,8 +15,22 @@ import yaml
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "configs")
 
 # top-level keys that may be set from the command line even when the YAML
-# lacks them (the reference's hydra struct mode knows them from its schema)
-_KNOWN_ROOT_KEYS = frozenset({"exp_dir", "seed"})
+# lacks them (the reference's hydra struct mode knows them from its schema);
+# the Experiment reads them directly (or rejects the features they ask for)
+_KNOWN_ROOT_KEYS = frozenset({
+    "exp_dir", "seed", "detect_anomaly",
+    "disable_testing", "disable_validation",
+    "steps_per_dispatch", "packed_transfer", "ema_rate", "eval_use_ema",
+    "visualize_denoising_video",
+    "compact_sources", "compact_val", "compact_drop_depth",
+    "compact_host_resize", "compact_scene_cache", "compact_cached_scenes",
+    "lpips_vgg_weights_path", "lpips_lin_weights_path",
+    "data_source_class_type", "data_source_ImplicitronDataSource_args",
+    "model_factory_class_type", "model_factory_ImplicitronModelFactory_args",
+    "optimizer_factory_class_type",
+    "optimizer_factory_ImplicitronOptimizerFactory_args",
+    "training_loop_class_type", "training_loop_ImplicitronTrainingLoop_args",
+})
 
 logger = logging.getLogger(__name__)
 
@@ -147,6 +162,8 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
                       ("EmissionAbsorptionRaymarcher",), "raymarcher_class_type")
     if raym.get("blend_output", False):
         raise NotImplementedError("blend_output=true is not supported")
+    # the renderer always returns its weights, so both values hold
+    rend.get("return_weights", False)
 
     args: Dict[str, Any] = dict(
         resol=m.get("resol", 16),
@@ -236,6 +253,7 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
             beta_end_unscaled=diff.get("beta_end_unscaled", 0.02),
             model_mean_type=diff.get("model_mean_type", "START_X"),
             model_var_type=diff.get("model_var_type", "FIXED_SMALL"),
+            schedule_sampler_type=diff.get("schedule_sampler_type", "uniform"),
         )
     return args
 
@@ -267,3 +285,220 @@ def optimizer_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
             max_epochs=t.get("max_epochs", 1000),
         ),
     }
+
+
+def training_loop_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """`training_loop_ImplicitronTrainingLoop_args` -> the loop's settings."""
+    t = cfg.get("training_loop_ImplicitronTrainingLoop_args", {})
+    return dict(
+        eval_only=t.get("eval_only", False),
+        max_epochs=t.get("max_epochs", 1000),
+        store_checkpoints=t.get("store_checkpoints", True),
+        store_checkpoints_purge=t.get("store_checkpoints_purge", 1),
+        test_interval=t.get("test_interval", -1),
+        test_when_finished=t.get("test_when_finished", False),
+        validation_interval=t.get("validation_interval", 1),
+        clip_grad=t.get("clip_grad", 0.0),
+        metric_print_interval=t.get("metric_print_interval", 5),
+        visualize_interval=t.get("visualize_interval", 100),
+        whole_dataset_batch=t.get("whole_dataset_batch", False),
+        profile=t.get("profile", False),
+        evaluator_ImplicitronEvaluator_args=dict(
+            t.get("evaluator_ImplicitronEvaluator_args", {}) or {}
+        ),
+    )
+
+
+def data_source_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """`data_source_ImplicitronDataSource_args` -> the data source's and the
+    loader's settings (the CO3D keys as the JAX package reads them)."""
+    d = cfg.get("data_source_ImplicitronDataSource_args", {})
+    dm = d.get("dataset_map_provider_JsonIndexDatasetMapProviderV2_args", {})
+    ds = dm.get("dataset_JsonIndexDataset_args", {})
+    dl = d.get("data_loader_map_provider_SequenceDataLoaderMapProvider_args", {})
+    return dict(
+        category=dm.get("category", "teddybear"),
+        subset_name=dm.get("subset_name", "fewview_dev"),
+        dataset_root=dm.get("dataset_root", ds.get("dataset_root", "")),
+        test_on_train=dm.get("test_on_train", True),
+        image_height=ds.get("image_height", 800),
+        image_width=ds.get("image_width", 800),
+        box_crop=ds.get("box_crop", True),
+        box_crop_mask_thr=ds.get("box_crop_mask_thr", 0.4),
+        box_crop_context=ds.get("box_crop_context", 0.3),
+        load_depths=ds.get("load_depths", True),
+        load_masks=ds.get("load_masks", True),
+        load_images=ds.get("load_images", True),
+        remove_empty_masks=ds.get("remove_empty_masks", True),
+        n_frames_per_sequence=ds.get("n_frames_per_sequence", -1),
+        pick_sequence=tuple(ds.get("pick_sequence", ()) or ()),
+        exclude_sequence=tuple(ds.get("exclude_sequence", ()) or ()),
+        limit_sequences_to=ds.get("limit_sequences_to", 0),
+        sort_frames=ds.get("sort_frames", False),
+        load_eval_batches=dm.get("load_eval_batches", False),
+        n_known_frames_for_test=dm.get("n_known_frames_for_test", 0),
+        batch_size=dl.get("batch_size", 16),
+        dataset_length_train=dl.get("dataset_length_train", 500),
+        dataset_length_val=dl.get("dataset_length_val", 5),
+        num_workers=dl.get("num_workers", 5),
+        train_conditioning_type=_validate_conditioning(
+            dl.get("train_conditioning_type", "SAME")
+        ),
+        images_per_seq_options=tuple(dl.get("images_per_seq_options", ()) or ()),
+    )
+
+
+def _validate_conditioning(value: str) -> str:
+    """Batches hold frames of one sequence (SAME); the reference's KNOWN and
+    EVAL conditioning modes are not supported."""
+    if str(value).upper() not in ("SAME", ""):
+        raise NotImplementedError(
+            f"train_conditioning_type={value!r}: only SAME-sequence batching is supported"
+        )
+    return value
+
+
+def dump_expconfig(cfg: Dict[str, Any], exp_dir: str) -> str:
+    """Snapshot the resolved config to `exp_dir/expconfig.yaml`, which
+    `utils/checkpoint_utils.py:load_experiment` reads back."""
+    os.makedirs(exp_dir, exist_ok=True)
+    path = os.path.join(exp_dir, "expconfig.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Consumed-key tracking: the translators above read the config through
+# literal `.get` calls; running them over a recording proxy gives the schema
+# of key paths they consume, and so the keys of a config that nothing reads.
+# ---------------------------------------------------------------------------
+
+
+class _Tracker:
+    def __init__(self):
+        self.paths: set = set()  # key paths read
+        self.child_reads: dict = {}  # path -> whether a key under it was read
+
+
+class _TrackingDict:
+    """Read-only dict proxy that records every key read, by path."""
+
+    def __init__(self, data, path: Tuple[str, ...], tracker: _Tracker):
+        self._d = data if isinstance(data, dict) else {}
+        self._path = path
+        self._t = tracker
+        tracker.child_reads.setdefault(path, False)
+
+    def _record(self, k):
+        p = self._path + (k,)
+        self._t.paths.add(p)
+        self._t.child_reads[self._path] = True
+        self._t.child_reads.setdefault(p, False)
+        return p
+
+    def get(self, k, default=None):
+        p = self._record(k)
+        v = self._d.get(k, default)
+        if isinstance(v, dict):
+            return _TrackingDict(v, p, self._t)
+        if isinstance(default, dict):
+            return _TrackingDict({}, p, self._t)
+        return v
+
+    def __getitem__(self, k):
+        p = self._record(k)
+        v = self._d[k]
+        return _TrackingDict(v, p, self._t) if isinstance(v, dict) else v
+
+    def __contains__(self, k):
+        self._record(k)
+        return k in self._d
+
+    def keys(self):
+        for k in self._d:
+            self._record(k)
+        return self._d.keys()
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
+
+    def __len__(self):
+        return len(self._d)
+
+
+# key paths that experiment.py reads directly, outside the translators
+_EXTRA_CONSUMED_PATHS = frozenset({
+    ("model_factory_ImplicitronModelFactory_args", "resume"),
+    ("model_factory_ImplicitronModelFactory_args", "resume_epoch"),
+    ("model_factory_ImplicitronModelFactory_args", "force_resume"),
+    ("model_factory_ImplicitronModelFactory_args", "model_HoloDiffusionModel_args", "log_vars"),
+    ("data_source_ImplicitronDataSource_args", "dataset_map_provider_class_type"),
+    ("data_source_ImplicitronDataSource_args", "data_loader_map_provider_class_type"),
+    # kwargs passed whole to SyntheticDataProvider
+    ("data_source_ImplicitronDataSource_args", "dataset_map_provider_SyntheticDataProvider_args"),
+})
+
+# keys of the reference's configs that are recognised but read by nothing,
+# with the reason the audit gives
+_REFERENCE_IGNORED_KEYS = {
+    "only_test_set": "test-set-only loading unsupported; use eval_only + test_on_train=false",
+    "path_manager_factory_class_type": "fb-internal PathManager surface; plain filesystem paths only",
+    "path_manager_factory_PathManagerFactory_args": "see path_manager_factory_class_type",
+    "visdom_env": "visdom is not supported",
+    "visdom_port": "visdom is not supported",
+    "visdom_server": "visdom is not supported",
+}
+
+
+def consumed_key_schema(cfg: Optional[Dict[str, Any]] = None):
+    """Run every translator over a recording proxy of `cfg`; returns
+    `(paths, open_subtrees)`: each key path read, and the dict-valued paths
+    consumed whole (every key under them counts as read, e.g.
+    `render_mlp_args`)."""
+    t = _Tracker()
+    proxy = _TrackingDict(cfg or {}, (), t)
+    for fn in (model_args_from_config, optimizer_args_from_config,
+               training_loop_args_from_config, data_source_args_from_config):
+        fn(proxy)
+    paths = set(t.paths) | set(_EXTRA_CONSUMED_PATHS)
+    open_subtrees = {p for p in paths if not t.child_reads.get(p, False)}
+    return paths, open_subtrees
+
+
+def audit_unconsumed_keys(cfg: Dict[str, Any], warn=None) -> List[str]:
+    """Warn for every key of `cfg` that nothing reads; returns their dotted
+    names. Keys of `_REFERENCE_IGNORED_KEYS` get their reason. The
+    `<slot>_<Class>_args` subtree of a class a `*_class_type` key did not
+    select is inert and not reported."""
+    warn = warn or logger.warning
+    paths, open_subtrees = consumed_key_schema(cfg)
+    dropped: List[str] = []
+
+    def visit(d: Dict, path: Tuple[str, ...]):
+        for k, v in d.items():
+            p = path + (k,)
+            if p in paths:
+                if isinstance(v, dict) and p not in open_subtrees:
+                    visit(v, p)
+                continue
+            if not path and k in _KNOWN_ROOT_KEYS:
+                continue
+            if k.endswith("_args") and any(
+                s != k and k.startswith(s[: -len("class_type")])
+                for s in d if s.endswith("_class_type")
+            ):
+                continue
+            name = ".".join(str(x) for x in p)
+            dropped.append(name)
+            if k in _REFERENCE_IGNORED_KEYS:
+                warn(f"config key {name!r} is recognized reference surface "
+                     f"but not consumed: {_REFERENCE_IGNORED_KEYS[k]}")
+            else:
+                warn(f"config key {name!r} is not consumed by any component")
+
+    visit(cfg, ())
+    return dropped

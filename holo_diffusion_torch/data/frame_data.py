@@ -24,7 +24,13 @@ class FrameData:
     def batch_size(self) -> int:
         return self.camera.batch_size
 
-    def to(self, device) -> "FrameData":
-        return FrameData(self.camera.to(device), *(
-            None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+    def to(self, device, non_blocking: bool = False) -> "FrameData":
+        return FrameData(self.camera.to(device, non_blocking), *(
+            None if getattr(self, f.name) is None else getattr(self, f.name).to(device, non_blocking=non_blocking)
+            for f in dataclasses.fields(self)[1:]))
+
+    def __getitem__(self, idx) -> "FrameData":
+        """The frames `idx` (an index tensor or a slice) of every field."""
+        return FrameData(self.camera[idx], *(
+            None if getattr(self, f.name) is None else getattr(self, f.name)[idx]
             for f in dataclasses.fields(self)[1:]))

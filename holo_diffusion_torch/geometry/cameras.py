@@ -34,9 +34,9 @@ class PerspectiveCameras:
             *(getattr(self, f.name)[idx] for f in dataclasses.fields(self))
         )
 
-    def to(self, device) -> "PerspectiveCameras":
+    def to(self, device, non_blocking: bool = False) -> "PerspectiveCameras":
         return PerspectiveCameras(
-            *(getattr(self, f.name).to(device) for f in dataclasses.fields(self))
+            *(getattr(self, f.name).to(device, non_blocking=non_blocking) for f in dataclasses.fields(self))
         )
 
 

@@ -1,11 +1,12 @@
 """One training step on one device (port of the single-device leg of
 holo_diffusion_tpu/parallel/train_step.py: uniform timesteps, no EMA, one
 step per call): forward with `training=True`, backward of the objective,
-optimizer step.
+optimizer step; and the EVALUATION forward of a batch.
 
     state = TrainState(model, optimizer)
     train_step = make_train_step(model, optimizer)
     state, metrics = train_step(state, batch, generator_or_draws)
+    outputs = make_eval_step(model)(state, batch)
 
 The decode's backward inside `loss.backward()` is the fused-decode backward
 kernel on CUDA (ops/fused_decode.py).
@@ -82,3 +83,30 @@ def make_train_step(
         return state, scalar_metrics(preds)
 
     return train_step
+
+
+def make_eval_step(model: HoloDiffusionModel) -> Callable[[TrainState, FrameData], Dict[str, torch.Tensor]]:
+    """eval_step(state, batch) -> the tracked scalar metrics and
+    `images/depths/masks_render` of the EVALUATION forward (frame 0 the
+    target, full-grid render), without autograd. It draws nothing random."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: FrameData) -> Dict[str, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step's")
+        preds = model(
+            camera=batch.camera,
+            image_rgb=batch.image_rgb,
+            fg_probability=batch.fg_probability,
+            mask_crop=batch.mask_crop,
+            depth_map=batch.depth_map,
+            training=False,
+        )
+        return {
+            **scalar_metrics(preds),
+            "images_render": preds["images_render"],
+            "depths_render": preds["depths_render"],
+            "masks_render": preds["masks_render"],
+        }
+
+    return eval_step

@@ -70,6 +70,12 @@ class Optimizer:
         for g, base in zip(self.optimizer.param_groups, self.base_lrs):
             g["lr"] = base * scale
 
+    def load_state_dict(self, state_dict: dict, steps: int):
+        """Restore the torch optimizer's state and the schedule's position."""
+        self.optimizer.load_state_dict(state_dict)
+        self.steps = steps
+        self._set_lr()
+
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
 

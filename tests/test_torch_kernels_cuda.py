@@ -1,7 +1,8 @@
 """The CUDA kernels of holo_diffusion_torch (the fused decode forward, K1/K3,
 and its backward K2, also where points share voxels; the trilinear sample K4 with its grid and points
 cotangents K5/K6; the one-hot-formulation sample K7) against their plain
-PyTorch versions, on the card. Every test here is marked `cuda` and skips without a
+PyTorch versions, on the card; and the training loop of the tiny synthetic
+experiment (run, checkpoint, resume) on the card. Every test here is marked `cuda` and skips without a
 CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs where JAX is not installed, without the suite's conftest:
 
@@ -644,3 +645,41 @@ def test_golden_toy_model_renders_on_the_card_with_default_arguments():
     for k in cpu:
         assert bool(torch.isfinite(card[k]).all())
         torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=0, atol=2e-3, msg=k)
+
+
+@pytest.mark.cuda
+def test_experiment_runs_and_resumes_on_the_card(tmp_path):
+    """The tiny synthetic experiment with no device given (the card): two
+    epochs with validation, whose training steps launch the fused-decode
+    backward twice each; the checkpoint restores run A's final state
+    bitwise; a new run resumes and takes only epoch 2's steps."""
+    from torch_tiny_config import LOOP, tiny_cfg
+
+    from holo_diffusion_torch.experiment import Experiment
+    from holo_diffusion_torch.train.checkpoint import restore_checkpoint
+
+    dev = _device()
+    cfg = tiny_cfg(tmp_path / "exp", ["disable_validation=false", LOOP + "visualize_interval=0"])
+    before = fd.launch_counts()["fused_decode_bwd"]
+    state, stats = Experiment(cfg).run(max_epochs=2)
+    torch.cuda.synchronize()
+    assert state.step == 4 and stats.epoch == 1
+    assert next(state.model.parameters()).device.type == dev.type
+    assert fd.launch_counts()["fused_decode_bwd"] - before == 2 * state.step
+    assert all(np.isfinite(v) for e in stats.history for s in ("train", "val") for v in e[s].values())
+
+    exp = Experiment(cfg)
+    restored, epoch = restore_checkpoint(exp.exp_dir, exp.init_state())
+    assert epoch == 1 and restored.step == 4 and restored.optimizer.steps == 4
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, restored.model.state_dict()[k]), k
+    saved = state.optimizer.optimizer.state_dict()["state"]
+    got = restored.optimizer.optimizer.state_dict()["state"]
+    assert set(saved) == set(got) and saved
+    for i, s in saved.items():
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(s[name], got[i][name]), (i, name)
+
+    resumed, stats = Experiment(cfg).run(max_epochs=3)
+    assert resumed.step == 6 and resumed.optimizer.steps == 6
+    assert [e["epoch"] for e in stats.history] == [0, 1, 2]

@@ -24,11 +24,13 @@ from holo_diffusion_tpu.utils.flyaround import simple_360_cameras as j_simple_36
 from holo_diffusion_torch import cli
 from holo_diffusion_torch.config import apply_dotted_overrides, load_config, model_args_from_config
 from holo_diffusion_torch.data.synthetic import make_synthetic_scene
+from holo_diffusion_torch.experiment import Experiment
 from holo_diffusion_torch.geometry.cameras import PerspectiveCameras
 from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
 from holo_diffusion_torch.ops import fused_decode as fd
 from holo_diffusion_torch.render_eval import render_image_chunked
 from holo_diffusion_torch.sampling import sample_random_voxel_features
+from holo_diffusion_torch.utils.checkpoint_utils import load_experiment
 from holo_diffusion_torch.utils.flyaround import render_flyaround, simple_360_cameras
 from holo_diffusion_torch.weights import init_weights, save_weights, state_dict_from_jax
 
@@ -136,6 +138,11 @@ def test_entry_points_raise_without_cuda(models, tmp_path, monkeypatch):
         lambda: render_flyaround(tm, str(tmp_path), n_flyaround_poses=1, voxel_features=grid[None]),
         lambda: cli.generate_samples_main(["config=base", f"output_directory={tmp_path}"]),
         lambda: make_synthetic_scene(n_views=2, image_size=8),
+        lambda: Experiment(load_config("synthetic_debug", [f"exp_dir={tmp_path}/exp"])),
+        lambda: load_experiment(str(tmp_path / "exp")),
+        lambda: cli.train_main(["--config-name", "synthetic_debug.yaml", "--max-epochs", "1",
+                                f"exp_dir={tmp_path}/exp"]),
+        lambda: cli.generate_samples_main([f"exp_dir={tmp_path}/exp"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
