@@ -49,14 +49,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
            runs epoch 2 only; then `generate_samples_main exp_dir=...`
            samples (10 DDIM steps) and renders a frame from the checkpoint,
            held against the same grid rendered by run B's model
+  co3d     the training loop on CO3D-format data: the port's synthetic CO3D
+           writer (2 sequences x 36 frames at 900 x 1200), cold scene loads
+           with hydrant's load arguments and one 33-frame batch's pinned
+           copy (bitwise on the card), `Experiment.run` 2 epochs of 2 steps
+           with a 512^2 validation frame each on `hydrant.yaml` with the
+           CO3D provider, one profiled step (idle share), 6 steps from a
+           one-scene cache (cold decodes: the loader's wait), a narrow step
+           card vs CPU on a uint8/float16 batch at 800^2
   kernels summary, the card's name and power limit, and the result line.
-Five main paths, each with the launch counters zeroed right before it and
+Six main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
 K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
 steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
-no K1/K2/K3) and the training loop (runs A and B: K2 twice a step, K3
-twice a step and 820 times a validation frame, no K1 or K4-K7). Float32
-stays full float32 (TF32 off for cuDNN and cuBLAS).
+no K1/K2/K3), the training loop (runs A and B: K2 twice a step, K3
+twice a step and 820 times a validation frame, no K1 or K4-K7) and the
+training loop on CO3D (the same counts for its 4 steps and 2 frames).
+Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import copy
 import gc
@@ -841,15 +850,16 @@ def expect_launches(counts, label, exactly=None, some=(), none=()):
             raise AssertionError(f"kernel {name} was launched on the {label} path")
 
 
-def train_check_phase(dev, variant, feature_size=32, **model_args):
+def train_check_phase(dev, variant, feature_size=32, scene=None, **model_args):
     """One training step of a narrow model (C `feature_size`, UNet 32
     channels, resnet18 stages 1-2, 2 x 128 rays; `model_args` such as
     fuse_decode="off") on the card and on the CPU with the same weights and
-    the same injected draws: the objective and the gradients of the UNet's
-    last conv, the pooled-feature mapper, the density net's first layer and
-    the extractor's stem (each relative to its largest magnitude); then a
-    24 px frame of a random grid through the same model on both. Returns
-    the launch counts of the card's run."""
+    the same injected draws, on `scene` (a CPU batch; 6 synthetic views at
+    48 px when None): the objective and the gradients of the UNet's last
+    conv, the pooled-feature mapper, the density net's first layer and the
+    extractor's stem (each relative to its largest magnitude); then a 24 px
+    frame of a random grid through the same model on both. Returns the
+    launch counts of the card's run."""
     import numpy as np
     import torch
 
@@ -870,7 +880,8 @@ def train_check_phase(dev, variant, feature_size=32, **model_args):
     )
     cpu_model = init_weights(HoloDiffusionModel(**toy), seed=1)
     card_model = copy.deepcopy(cpu_model).to(dev)
-    scene = make_synthetic_scene(n_views=6, image_size=48, seed=2, device="cpu")
+    if scene is None:
+        scene = make_synthetic_scene(n_views=6, image_size=48, seed=2, device="cpu")
     rs = np.random.RandomState(3)
     B, N, P, F = 2, 128, 16, 16
     draws = {
@@ -1087,6 +1098,205 @@ def train_loop_phase(here, dev, train_step_busy_ms, results):
         raise AssertionError(f"checkpoint log: {ck}")
 
 
+def frame_bytes(batch):
+    """The bytes of every tensor of a FrameData, its cameras included."""
+    import dataclasses
+
+    tensors = [getattr(batch.camera, f.name) for f in dataclasses.fields(batch.camera)]
+    tensors += [getattr(batch, f.name) for f in dataclasses.fields(batch)[1:] if getattr(batch, f.name) is not None]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def same_bits(a, b):
+    """Every tensor of FrameData `a` equals `b`'s, bitwise (on the host)."""
+    import dataclasses
+
+    import torch
+
+    pairs = [(getattr(a.camera, f.name), getattr(b.camera, f.name)) for f in dataclasses.fields(a.camera)]
+    pairs += [(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)[1:]]
+    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for x, y in pairs)
+
+
+def co3d_phase(here, dev, results):
+    """The hydrant training loop fed by CO3D-format data, through the port's
+    own loader: a release-format tree from `data/synthetic_co3d.py` (2
+    sequences x 36 frames at 900 x 1200, the last 2 of each for val); cold
+    scene loads with hydrant's load arguments (800^2, box crop 0.4/0.3,
+    depths, compact cache) and one 33-frame batch's pinned copy to the card
+    (bitwise); `Experiment(cfg).run(max_epochs=2)` on `hydrant.yaml` with
+    the CO3D provider (2 steps an epoch, a 512^2 validation frame an epoch:
+    the main path, launch counters zeroed right before and read right
+    after); one profiled step on a CO3D batch (idle share); 6 steps from a
+    dataset that caches one scene, so a scene switch decodes cold (the
+    loader's wait per step); one narrow step card vs CPU on a 6-frame
+    uint8/float16 batch at 800^2."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from holo_diffusion_torch.config import data_source_args_from_config, load_config
+    from holo_diffusion_torch.data import co3d
+    from holo_diffusion_torch.data.source import AsyncLoader, epoch_loader
+    from holo_diffusion_torch.data.synthetic_co3d import write_synthetic_co3d
+    from holo_diffusion_torch.experiment import Experiment
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.parallel.train_step import make_train_step
+
+    root = os.path.join(here, "build", "chip_smoke", "co3d")
+    exp_dir = os.path.join(here, "build", "chip_smoke", "co3d_exp")
+    for d in (root, exp_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    n_seq, n_frames, n_val = 2, 36, 2
+    t0 = time.perf_counter()
+    write_synthetic_co3d(root, n_seq=n_seq, n_frames=n_frames, H=900, W=1200, seed=0, n_val_frames=n_val)
+    write_s = time.perf_counter() - t0
+
+    ds = "data_source_ImplicitronDataSource_args."
+    prov = ds + "dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
+    dl = ds + "data_loader_map_provider_SequenceDataLoaderMapProvider_args."
+    cfg = load_config("hydrant", [
+        ds + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2",
+        prov + f"dataset_root={root}", prov + "category=synthball",
+        dl + "dataset_length_train=66", dl + "dataset_length_val=1",
+        "disable_validation=false", "training_loop_ImplicitronTrainingLoop_args.visualize_interval=0",
+        f"exp_dir={exp_dir}"])
+    data_args = data_source_args_from_config(cfg)
+    batch_size = data_args["batch_size"]
+
+    # ---- cold loads from an empty cache, one batch's pinned copy
+    provider = co3d.CO3DDataProvider(**data_args)
+    cold_s = []
+    for i in range(len(provider.train)):
+        t0 = time.perf_counter()
+        provider.train.get_scene(i)
+        cold_s.append(time.perf_counter() - t0)
+    train_frames = n_frames - n_val
+    batch = provider.train.sample_batch(np.random.RandomState(0), batch_size)
+    nbytes = frame_bytes(batch)
+    # the first pin allocates page-locked memory; the second reuses the
+    # first's freed buffer, as the loader's steady state does
+    pin_s, pinned = [], None
+    for _ in range(2):
+        pinned = None
+        t0 = time.perf_counter()
+        pinned = batch.pin_memory()
+        pin_s.append(time.perf_counter() - t0)
+    copy_ms, pageable_ms = [], []
+    for src, out in ((pinned, copy_ms), (batch, pageable_ms)) * 3:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        on_card = src.to(dev, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    copy_bitwise = same_bits(on_card, batch) and on_card.device.type == "cuda"
+    dtypes = {f: str(getattr(batch, f).dtype) for f in ("image_rgb", "fg_probability", "mask_crop", "depth_map")}
+    del provider, pinned, on_card
+
+    # ---- the training loop (the main path)
+    exp = Experiment(cfg)
+    init = {n: p.detach().clone() for n, p in exp.init_state().model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts_all()
+    t0 = time.perf_counter()
+    state, stats = exp.run(max_epochs=2)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts_all()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit({"phase": "main_path", "path": "train_co3d", "launches": counts})
+    model = state.model
+    steps = state.step
+    frame_launches = model.num_passes * math.ceil(
+        model.render_image_height * model.render_image_width
+        / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
+    expect_launches(counts, "CO3D training loop",
+                    exactly={"fused_decode_bwd": 2 * steps,
+                             "fused_decode_fwd_normals": 2 * steps + 2 * frame_launches},
+                    none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["fused_decode_bwd"]["train_co3d_launches"] = counts["fused_decode_bwd"]
+    results["fused_decode_fwd_normals"]["train_co3d_launches"] = counts["fused_decode_fwd_normals"]
+    changed = {n.split(".")[0] for n, p in model.named_parameters() if not torch.equal(p.detach(), init[n])}
+    unmoved = sorted({n.split(".")[0] for n in init} - changed)
+    del init
+    if steps != 4 or [e["epoch"] for e in stats.history] != [0, 1] or unmoved:
+        raise AssertionError(f"CO3D loop: {steps} steps, history {stats.history}, unmoved {unmoved}")
+    if not all(math.isfinite(x) for e in stats.history for s in ("train", "val") for x in e[s].values()):
+        raise AssertionError(f"CO3D loop: non-finite metrics {stats.history}")
+
+    # ---- one profiled step on a CO3D batch: the device's idle share
+    step = make_train_step(model, state.optimizer)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b = exp._to_device(exp.data.train.sample_batch(np.random.RandomState(1), batch_size))
+    model.train()
+    state, _ = step(state, b, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, b, gen)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, b, gen)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    del b
+
+    # ---- a cache of one scene: every scene switch decodes cold
+    cold_ds = co3d.CO3DDataProvider(**data_args, max_cached_scenes=1).train
+    it = iter(AsyncLoader(epoch_loader(cold_ds, batch_size, 6, seed=123), transfer=exp._to_device))
+    walls, waits, scenes = [], [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        b = next(it)
+        t1 = time.perf_counter()
+        state, _ = step(state, b, gen)
+        scenes.append(int(b.sequence_id[0]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        waits.append(t1 - t0)
+    for _ in it:  # the loader's thread ends
+        pass
+    del b, cold_ds
+
+    # ---- card against CPU on CO3D dtypes: a narrow step on 6 frames at 800^2
+    scene6 = exp.data.train.sample_batch(np.random.RandomState(2), 6)
+    if scene6.image_rgb.dtype != torch.uint8 or scene6.depth_map.dtype != torch.float16:
+        raise AssertionError(f"CO3D batch dtypes {scene6.image_rgb.dtype}, {scene6.depth_map.dtype}")
+    small_bitwise = same_bits(scene6.pin_memory().to(dev, non_blocking=True), scene6)
+    del exp, state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_check_phase(dev, "train_co3d_card_vs_cpu", scene=scene6)
+
+    hist = stats.history
+    emit({"phase": "co3d",
+          "tree": {"sequences": n_seq, "frames": n_seq * n_frames, "size": [900, 1200], "write_s": write_s,
+                   "write_s_per_frame": write_s / (n_seq * n_frames)},
+          "cold_load": {"s_per_scene": cold_s, "frames_per_scene": train_frames,
+                        "frames_per_s": n_seq * train_frames / sum(cold_s),
+                        "pool_width": co3d._decode_pool_width(data_args["num_workers"]),
+                        "cpus_affinity": len(os.sched_getaffinity(0)), "cpu_count": os.cpu_count()},
+          "batch": {"frames": batch_size, "dtypes": dtypes, "bytes": nbytes, "pin_s": pin_s,
+                    "h2d_pinned_ms": copy_ms, "h2d_pageable_ms": pageable_ms,
+                    "h2d_pinned_gb_per_s": nbytes / 1e6 / min(copy_ms), "bitwise_on_card": copy_bitwise,
+                    "bitwise_on_card_6_frames": small_bitwise},
+          "loop": {"epochs": 2, "steps": steps, "run_s": run_s, "s_per_step_stats": [e["train"]["sec/it"] for e in hist],
+                   "val_frame_s": [e["val"]["sec/it"] for e in hist],
+                   "train_loss_rgb_psnr": [e["train"]["loss_rgb_psnr"] for e in hist],
+                   "val_loss_rgb_psnr": [e["val"]["loss_rgb_psnr"] for e in hist],
+                   "max_memory_allocated_gib": peak_gib, "launches": counts},
+          "profiled_step": {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms},
+          "cold_cache": {"max_cached_scenes": 1, "scenes": scenes, "wall_s": walls, "wait_s": waits,
+                         "mean_wall_s": sum(walls) / len(walls), "mean_wait_s": sum(waits) / len(waits)}})
+    if not copy_bitwise or not small_bitwise:
+        raise AssertionError("a CO3D batch on the card differs from the host batch")
+
+
 def main():
     import torch
 
@@ -1258,6 +1468,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_loop_phase(here, dev, busy["train_step"], results)
+
+    # ---- the training loop on CO3D-format data, after the models above are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    co3d_phase(here, dev, results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)

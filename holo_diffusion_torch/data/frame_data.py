@@ -1,6 +1,8 @@
 """FrameData, the batch the model takes (port of
 holo_diffusion_tpu/data/frame_data.py, non-compact batches): one scene's
-frames, channels-last images."""
+frames, channels-last images. Images and masks are float32 in [0, 1] or
+uint8, depths float32 or float16 (the CO3D cache's dtypes); the model
+converts them on the device (models/metrics.py:as_unit_float)."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,10 +26,25 @@ class FrameData:
     def batch_size(self) -> int:
         return self.camera.batch_size
 
+    @property
+    def device(self) -> torch.device:
+        return self.camera.R.device
+
+    def _map(self, fn) -> "FrameData":
+        return FrameData(
+            PerspectiveCameras(*(fn(getattr(self.camera, f.name)) for f in dataclasses.fields(self.camera))),
+            *(None if getattr(self, f.name) is None else fn(getattr(self, f.name))
+              for f in dataclasses.fields(self)[1:]))
+
     def to(self, device, non_blocking: bool = False) -> "FrameData":
-        return FrameData(self.camera.to(device, non_blocking), *(
-            None if getattr(self, f.name) is None else getattr(self, f.name).to(device, non_blocking=non_blocking)
-            for f in dataclasses.fields(self)[1:]))
+        return self._map(lambda x: x.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "FrameData":
+        """A copy of a CPU batch in page-locked memory, so that
+        `.to(card, non_blocking=True)` copies asynchronously. PyTorch's
+        pinned-memory allocator records the copy's stream: a freed buffer
+        is not handed out again before the copy that reads it completes."""
+        return self._map(lambda x: x.pin_memory())
 
     def __getitem__(self, idx) -> "FrameData":
         """The frames `idx` (an index tensor or a slice) of every field."""

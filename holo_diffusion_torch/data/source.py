@@ -8,7 +8,9 @@ are drawn with the same `np.random.RandomState` calls as the JAX package, so
 a seed gives the same frames in the same order on both sides.
 
 Providers: `SyntheticDataProvider` (sphere scenes of data/synthetic.py, made
-on the given device). CO3D is not ported yet.
+on the given device, so its batches are gathered there) and
+`data/co3d.py:CO3DDataProvider` (CO3Dv2, scenes cached on the host: its
+batches are CPU tensors, which the training loop pins and copies).
 """
 from __future__ import annotations
 

@@ -31,6 +31,8 @@ from .config import (
     optimizer_args_from_config,
     training_loop_args_from_config,
 )
+from .data.co3d import CO3DDataProvider
+from .data.frame_data import FrameData
 from .data.source import AsyncLoader, SyntheticDataProvider, WholeDatasetLoader, epoch_loader
 from .device import DeviceLike, resolve_device
 from .models.holo_model import HoloDiffusionModel
@@ -58,7 +60,7 @@ def seed_all_random_engines(seed: int):
     random.seed(seed)
 
 
-def _check_ported(cfg, loop_args, provider: str, diffusion_args) -> None:
+def _check_ported(cfg, loop_args, diffusion_args) -> None:
     """Raise for each feature the config asks for that the port lacks,
     naming the ROADMAP.md §1 item that ports it."""
     validation_on = loop_args["validation_interval"] > 0 and not cfg.get("disable_validation", False)
@@ -69,7 +71,6 @@ def _check_ported(cfg, loop_args, provider: str, diffusion_args) -> None:
         ((diffusion_args or {}).get("schedule_sampler_type", "uniform") != "uniform",
          "schedule_sampler_type other than uniform", 2),
         (int(cfg.get("steps_per_dispatch", 1)) > 1, "steps_per_dispatch > 1", 2),
-        (provider != "SyntheticDataProvider", f"dataset_map_provider_class_type={provider} (CO3D)", 3),
         (bool(cfg.get("compact_sources", False)), "compact_sources", 3),
         (bool(cfg.get("packed_transfer", False)), "packed_transfer", 3),
         (bool(loop_args["eval_only"]), "eval_only", 4),
@@ -113,16 +114,14 @@ class Experiment:
         self.data_args = data_source_args_from_config(cfg)
         ds_cfg = cfg.get("data_source_ImplicitronDataSource_args", {})
         provider = ds_cfg.get("dataset_map_provider_class_type", "JsonIndexDatasetMapProviderV2")
-        _check_ported(cfg, self.loop_args, provider, self.model_args.get("diffusion_args"))
+        _check_ported(cfg, self.loop_args, self.model_args.get("diffusion_args"))
         seed_all_random_engines(self.seed)
         if cfg.get("detect_anomaly", False):
             # the reference's detect_anomaly (experiment.py:181-184)
             torch.autograd.set_detect_anomaly(True)
 
         self.model = HoloDiffusionModel(**self.model_args)
-        self.data = SyntheticDataProvider(
-            seed=self.seed, device=self.device,
-            **ds_cfg.get("dataset_map_provider_SyntheticDataProvider_args", {}))
+        self.data = self._build_data_source(ds_cfg, provider)
         self.batch_size = self.data_args["batch_size"]
         self.n_batches_train = max(1, self.data_args["dataset_length_train"] // self.batch_size)
         self.n_batches_val = max(1, self.data_args["dataset_length_val"] // max(self.batch_size, 1))
@@ -130,6 +129,23 @@ class Experiment:
         self.lr_schedule = make_lr_schedule(
             self.opt_args["optimizer"]["lr"], **self.opt_args["schedule"],
             steps_per_epoch=self.n_batches_train)
+
+    def _build_data_source(self, ds_cfg: dict, provider: str):
+        """The synthetic scenes (made on the device) or CO3Dv2 (cached on
+        the host)."""
+        if provider == "SyntheticDataProvider":
+            return SyntheticDataProvider(
+                seed=self.seed, device=self.device,
+                **ds_cfg.get("dataset_map_provider_SyntheticDataProvider_args", {}))
+        return CO3DDataProvider(**self.data_args)
+
+    def _to_device(self, batch: FrameData) -> FrameData:
+        """A batch on the device. A host batch bound for the card is pinned
+        first, so its copy is asynchronous (in the loader's thread, it
+        overlaps the step before)."""
+        if batch.device.type == "cpu" and self.device.type == "cuda":
+            batch = batch.pin_memory()
+        return batch.to(self.device, non_blocking=True)
 
     def init_state(self) -> TrainState:
         """The seeded initialisation (weights.init_weights, drawn on the
@@ -151,6 +167,7 @@ class Experiment:
         use_chunked = (model.chunk_size_grid or 0) > 0 and model.sampling_mode_evaluation == "full_grid"
         out = None
         for batch in epoch_loader(self.data.val, self.batch_size, self.n_batches_val, self.seed + epoch):
+            batch = self._to_device(batch)
             out = self._eval_batch_chunked(state, batch) if use_chunked else eval_step(state, batch)
             stats.update(_host_floats({k: v for k, v in out.items() if v.ndim == 0}), "val")
         return out
@@ -237,8 +254,7 @@ class Experiment:
                     stats.update(_host_floats(pending.popleft()), "train")
 
             self.model.train()
-            for it, batch in enumerate(AsyncLoader(
-                    loader, transfer=lambda b: b.to(self.device, non_blocking=True))):
+            for it, batch in enumerate(AsyncLoader(loader, transfer=self._to_device)):
                 state, metrics = train_step(state, batch, generator)
                 pending.append(metrics)
                 if print_interval and it % print_interval == 0:

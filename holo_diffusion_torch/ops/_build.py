@@ -1,10 +1,13 @@
-"""Build the port's CUDA kernels with `nvcc` at first use and load them.
+"""Build the port's native libraries at first use and load them.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
-into `build/holo_diffusion_torch/lib<name>-<digest>.so` beside the package
-(the digest covers the source, every header under `csrc/` and the flags, so
-an edited source, or an edited header, rebuilds).
-The library is loaded with `ctypes`. Nothing is built at import time.
+Each `csrc/<name>.cu` (a CUDA kernel, compiled by `nvcc`) or
+`csrc/<name>.cpp` (host code of the data loader, compiled by `g++`) exposes
+a plain C interface and is compiled on its own into
+`build/holo_diffusion_torch/lib<name>-<digest>.so` beside the package (the
+digest covers the source and the flags, and for a `.cu` every header under
+`csrc/`, so an edited source, or an edited header, rebuilds). The library
+is loaded with `ctypes`. Nothing is built at import time, and a failed
+build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 SOURCES = ("fused_decode", "fused_decode_bwd", "kron_sample", "fused_render")
+HOST_SOURCES = ("preprocess",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -40,31 +45,52 @@ def nvcc_path() -> str:
     return path
 
 
+def gxx_path() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: the data loader's C++ library cannot be built")
+    return path
+
+
+def _source(name: str) -> Path:
+    """`csrc/<name>.cu`, else `csrc/<name>.cpp`."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    src = _source(name)
+    h = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+    else:
+        h.update(" ".join(HOST_FLAGS).encode())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every library of `names` that is not built yet, one `nvcc`
-    per source, all started together. Returns {name: seconds} for the
-    sources compiled now; the compiler's resource report (`-Xptxas -v`) is
+def build(names: Iterable[str] = SOURCES + HOST_SOURCES) -> Dict[str, float]:
+    """Compile every library of `names` that is not built yet, one compiler
+    per source (`nvcc` for a `.cu`, `g++` for a `.cpp`), all started
+    together. Returns {name: seconds} for the sources compiled now; the
+    compiler's output (for a kernel, the `-Xptxas -v` resource report) is
     kept in `<library>.log`. Raises with the compiler's output on failure."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
         out = library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        src = _source(name)
+        if src.suffix == ".cu":
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        else:
+            cmd = [gxx_path(), *HOST_FLAGS, str(src), "-o", str(tmp)]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
@@ -78,7 +104,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("the build failed for " + "\n".join(failed))
     return seconds
 
 
@@ -89,7 +115,8 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built first if needed."""
+    """The loaded library for `csrc/<name>.cu` or `.cpp`, built first if
+    needed."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])

@@ -8,27 +8,18 @@ from __future__ import annotations
 
 import os
 import shutil
-import struct
 import subprocess
-import zlib
 from typing import List, Optional
 
 import numpy as np
 
+from ..data.image_io import png_bytes
+
 
 def write_png(path: str, frame: np.ndarray) -> None:
     """Write an (H, W, 3) uint8 frame as an 8-bit RGB PNG."""
-    h, w, _ = frame.shape
-    raw = b"".join(b"\x00" + frame[y].tobytes() for y in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        body = tag + data
-        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
-
-    png = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-    png += chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b"")
     with open(path, "wb") as f:
-        f.write(png)
+        f.write(png_bytes(frame, 2))
 
 
 class VideoWriter:

@@ -41,3 +41,19 @@ def tiny_cfg(exp_dir, extra=()):
     """The tiny config with its experiment in `exp_dir`, plus `extra`
     overrides."""
     return load_config("synthetic_debug.yaml", [f"exp_dir={exp_dir}", *TINY_OVERRIDES, *extra])
+
+
+_DS = "data_source_ImplicitronDataSource_args."
+_CO3D = _DS + "dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
+
+
+def tiny_co3d_cfg(exp_dir, dataset_root, category="synthball", extra=()):
+    """The tiny config reading a CO3D-format tree (such as
+    `data/synthetic_co3d.py` writes) at 16 px, batches of 3 frames."""
+    return tiny_cfg(exp_dir, [
+        _DS + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2",
+        _CO3D + f"dataset_root={dataset_root}",
+        _CO3D + f"category={category}",
+        _CO3D + "dataset_JsonIndexDataset_args.image_height=16",
+        _CO3D + "dataset_JsonIndexDataset_args.image_width=16",
+        *extra])
