@@ -57,14 +57,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
            CO3D provider, one profiled step (idle share), 6 steps from a
            one-scene cache (cold decodes: the loader's wait), a narrow step
            card vs CPU on a uint8/float16 batch at 800^2
+  train_full  the whole training step on the same tree: `hydrant.yaml` with
+           ema_rate 0.9999, the loss-second-moment sampler and 2 optimizer
+           steps per dispatch; run A 1 epoch (2 dispatches), a bitwise
+           restore (model, Adam, EMA, sampler state), run B resumes for a
+           second epoch; the EMA and sampler updates' device time; a
+           sampler warmed on the card whose 20,000 draws follow its
+           weights; `run_eval_only` through the EMA over the tree's eval
+           batches at 800^2 (pooling, render and host metrics timed);
+           `generate_samples_main exp_dir=... use_ema=true`; a narrow
+           loss-aware + EMA step card vs CPU
   kernels summary, the card's name and power limit, and the result line.
-Six main paths, each with the launch counters zeroed right before it and
+Eight main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
 K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
 steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
 no K1/K2/K3), the training loop (runs A and B: K2 twice a step, K3
-twice a step and 820 times a validation frame, no K1 or K4-K7) and the
-training loop on CO3D (the same counts for its 4 steps and 2 frames).
+twice a step and 820 times a validation frame, no K1 or K4-K7), the
+training loop on CO3D and the whole training step (the same counts for
+their steps and frames), and evaluation (K3 twice a chunk of each
+target, nothing else).
 Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import copy
@@ -850,26 +862,10 @@ def expect_launches(counts, label, exactly=None, some=(), none=()):
             raise AssertionError(f"kernel {name} was launched on the {label} path")
 
 
-def train_check_phase(dev, variant, feature_size=32, scene=None, **model_args):
-    """One training step of a narrow model (C `feature_size`, UNet 32
-    channels, resnet18 stages 1-2, 2 x 128 rays; `model_args` such as
-    fuse_decode="off") on the card and on the CPU with the same weights and
-    the same injected draws, on `scene` (a CPU batch; 6 synthetic views at
-    48 px when None): the objective and the gradients of the UNet's last
-    conv, the pooled-feature mapper, the density net's first layer and the
-    extractor's stem (each relative to its largest magnitude); then a 24 px
-    frame of a random grid through the same model on both. Returns the
-    launch counts of the card's run."""
-    import numpy as np
-    import torch
-
-    from holo_diffusion_torch.data.synthetic import make_synthetic_scene
-    from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
-    from holo_diffusion_torch.render_eval import render_image_chunked
-    from holo_diffusion_torch.utils.flyaround import simple_360_cameras
-    from holo_diffusion_torch.weights import init_weights
-
-    toy = dict(
+def narrow_model_args(feature_size=32, **model_args):
+    """A narrow model (C `feature_size`, UNet 32 channels, resnet18 stages
+    1-2, 2 x 128 rays of 16 + 16 points, normals on) for card-vs-CPU checks."""
+    return dict(
         resol=8, volume_extent=4.0, feature_size=feature_size, n_train_target_views=2, n_rays_per_image=128,
         n_pts_per_ray_training=16, n_pts_per_ray_fine_training=16, scene_extent=2.0, render_normals=True,
         net_3d_args=dict(model_channels=32, num_res_blocks=1, channel_mult=(1, 2), attention_resolutions=(2,)),
@@ -878,25 +874,84 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, **model_args):
                               aggregator_args=dict(n_hidden=32, dim_out=32)),
         render_mlp_args=dict(dnet_hidden_dim=64, rnet_hidden_dim=16), **model_args,
     )
-    cpu_model = init_weights(HoloDiffusionModel(**toy), seed=1)
-    card_model = copy.deepcopy(cpu_model).to(dev)
-    if scene is None:
-        scene = make_synthetic_scene(n_views=6, image_size=48, seed=2, device="cpu")
-    rs = np.random.RandomState(3)
+
+
+def narrow_draws(rs, feature_size, timesteps=(400, 90), take_boot=True):
+    """Every draw of one training step of `narrow_model_args`' model, from
+    the numpy RandomState `rs`."""
+    import numpy as np
+
     B, N, P, F = 2, 128, 16, 16
-    draws = {
-        "timesteps": np.array([400, 90]), "take_boot": True,
+    return {
+        "timesteps": np.array(timesteps), "take_boot": take_boot,
         "noise": rs.randn(1, 8, 8, 8, feature_size), "noise2": rs.randn(1, 8, 8, 8, feature_size),
         "ray_pixel_u": rs.rand(B, N), "ray_length_u": rs.rand(B, N, P), "density_noise_0": rs.randn(B, N, P),
         "refine_u_1": rs.rand(B, N, F), "density_noise_1": rs.randn(B, N, P + F),
     }
-    objs = {}
+
+
+def warm_loss_history(T, H=10, seed=21):
+    """A full (T, H) loss history, uneven across timesteps, from a seed."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    return (rs.rand(T, H) * np.linspace(0.2, 2.0, T)[:, None]).astype(np.float32)
+
+
+def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=False, **model_args):
+    """One training step of a narrow model (`narrow_model_args`; `model_args`
+    such as fuse_decode="off") on the card and on the CPU with the same
+    weights and the same injected draws, on `scene` (a CPU batch; 6
+    synthetic views at 48 px when None): the objective and the gradients of
+    the UNet's last conv, the pooled-feature mapper, the density net's first
+    layer and the extractor's stem (each relative to its largest magnitude);
+    then a 24 px frame of a random grid through the same model on both.
+    With `loss_aware_ema` the step is `make_train_step`'s whole step
+    instead: the loss-second-moment sampler from a warmed state, the EMA at
+    rate 0.9 and two SGD steps in one call (the second on the scene's frames
+    reversed, without the bootstrap pass); the gradients are the second
+    step's, and the EMA's change and the sampler's state are held too.
+    Returns the launch counts of the card's run."""
+    import numpy as np
+    import torch
+
+    from holo_diffusion_torch.data.frame_data import FrameData
+    from holo_diffusion_torch.data.synthetic import make_synthetic_scene
+    from holo_diffusion_torch.models import diffusion as gd
+    from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
+    from holo_diffusion_torch.parallel.train_step import TrainState, make_train_step
+    from holo_diffusion_torch.render_eval import render_image_chunked
+    from holo_diffusion_torch.train.optimizer import make_optimizer
+    from holo_diffusion_torch.utils.flyaround import simple_360_cameras
+    from holo_diffusion_torch.weights import init_weights
+
+    cpu_model = init_weights(HoloDiffusionModel(**narrow_model_args(feature_size, **model_args)), seed=1)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    if scene is None:
+        scene = make_synthetic_scene(n_views=6, image_size=48, seed=2, device="cpu")
+    rs = np.random.RandomState(3)
+    draws = narrow_draws(rs, feature_size)
+    if loss_aware_ema:
+        draws = [draws, narrow_draws(rs, feature_size, timesteps=(700, 5), take_boot=False)]
+        scene = FrameData.stack_steps([scene, scene[torch.arange(scene.batch_size - 1, -1, -1)]])
+        hist = warm_loss_history(cpu_model.schedule.num_timesteps)
+        before = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    objs, states = {}, {}
     reset_launch_counts_all()
     for label, m, b in (("card", card_model, scene.to(dev)), ("cpu", cpu_model, scene)):
-        preds = m(camera=b.camera, image_rgb=b.image_rgb, fg_probability=b.fg_probability,
-                  mask_crop=b.mask_crop, depth_map=b.depth_map, training=True, draws=draws)
-        preds["objective"].backward()
-        objs[label] = preds["objective"].item()
+        if loss_aware_ema:
+            d = next(m.parameters()).device
+            opt = make_optimizer(m.named_parameters(), breed="SGD", lr=0.05, momentum=0.0)
+            sampler = gd.LossSecondMomentState(torch.from_numpy(hist).to(d), torch.full(
+                (hist.shape[0],), hist.shape[1], dtype=torch.int64, device=d))
+            step = make_train_step(m, opt, schedule_sampler="loss-second-moment", ema_rate=0.9, steps_per_call=2)
+            states[label], metrics = step(TrainState.create(m, opt, sampler_state=sampler, ema=True), b, draws)
+            objs[label] = metrics["objective"].item()
+        else:
+            preds = m(camera=b.camera, image_rgb=b.image_rgb, fg_probability=b.fg_probability,
+                      mask_crop=b.mask_crop, depth_map=b.depth_map, training=True, draws=draws)
+            preds["objective"].backward()
+            objs[label] = preds["objective"].item()
     gated = ("net_3d.out.2.weight", "pooled_feature_mapper.weight",
              "implicit_function.render_mlp._density_net.mlp.0.0.weight", "image_feature_extractor.net.conv1.weight")
     cpu_grads = dict(cpu_model.named_parameters())
@@ -910,6 +965,26 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, **model_args):
     largest = max(scale.values())
     worst = max((n for n in rel if scale[n] > 1e-6 * largest), key=rel.get)
     obj_err = abs(objs["card"] - objs["cpu"])
+    extra, ok = {}, True
+    if loss_aware_ema:
+        # the EMA's change from the initial weights, relative to its scale,
+        # above the rounding of float32 parameters
+        ema_rel = {}
+        for n in gated:
+            got = states["card"].ema[n].cpu() - before[n]
+            want = states["cpu"].ema[n] - before[n]
+            floor = 2 * torch.finfo(torch.float32).eps * float(states["cpu"].ema[n].abs().max())
+            ema_rel[n] = float((got - want).abs().max()) / max(float(want.abs().max()), floor / TRAIN_GRAD_TOL)
+        sc, ss = states["card"].sampler_state, states["cpu"].sampler_state
+        counts_equal = torch.equal(sc.loss_counts.cpu(), ss.loss_counts)
+        hist_err = float((sc.loss_history.cpu() - ss.loss_history).abs().max())
+        # step 0 credits both timesteps, step 1 (no bootstrap pass) its main one
+        credited = sorted(np.nonzero((ss.loss_history.numpy() != hist).any(1))[0].tolist())
+        extra = {"ema_change_rel_errs": ema_rel, "sampler_counts_equal": counts_equal,
+                 "sampler_history_abs_err": hist_err, "sampler_on_card": sc.loss_history.device.type,
+                 "credited_timesteps": credited}
+        ok = (max(ema_rel.values()) <= TRAIN_GRAD_TOL and counts_equal and hist_err <= TRAIN_OBJ_TOL
+              and sc.loss_history.device.type == torch.device(dev).type and credited == [90, 400, 700])
     grid = torch.tanh(torch.from_numpy(rs.randn(8, 8, 8, feature_size).astype(np.float32)))
     cam = simple_360_cameras(1, dist=6.0)
     with torch.no_grad():
@@ -922,9 +997,9 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, **model_args):
     emit({"phase": "check", "variant": variant, "channels": feature_size, "card_launches": counts,
           "objective": objs, "objective_abs_err": obj_err,
           "grad_rel_errs": {n: rel[n] for n in gated}, "worst_leaf_above_1e-6_of_largest_grad": [worst, rel[worst]],
-          "render_24px_abs_err": render_err, "finite": finite,
+          **extra, "render_24px_abs_err": render_err, "finite": finite,
           "tol": {"objective": TRAIN_OBJ_TOL, "grad_rel": TRAIN_GRAD_TOL, "render": RENDER_TOL}})
-    if obj_err > TRAIN_OBJ_TOL or max(rel[n] for n in gated) > TRAIN_GRAD_TOL:
+    if obj_err > TRAIN_OBJ_TOL or max(rel[n] for n in gated) > TRAIN_GRAD_TOL or not ok:
         raise AssertionError(f"{variant}: card and CPU disagree beyond tolerance")
     if not finite or set(frame) != set(want) or max(render_err.values()) > RENDER_TOL:
         raise AssertionError(f"{variant}: the 24 px frame is not finite or disagrees with the CPU: {render_err}")
@@ -964,6 +1039,33 @@ def read_png_rgb(path):
     if rows[:, 0].any():
         raise AssertionError(f"{path}: a PNG row filter other than 0")
     return rows[:, 1:].reshape(h, w, 3)
+
+
+def state_differences(a, b):
+    """The names of whatever differs between TrainStates `a` and `b`,
+    bitwise: the model's state_dict, Adam's moments and step counts, and
+    the EMA and the sampler state where `a` holds them."""
+    import torch
+
+    sd_b = b.model.state_dict()
+    differ = [k for k, v in a.model.state_dict().items() if not torch.equal(v, sd_b[k])]
+    moments_a = a.optimizer.optimizer.state_dict()["state"]
+    moments_b = b.optimizer.optimizer.state_dict()["state"]
+    if not moments_a or set(moments_a) != set(moments_b):
+        differ.append("adam state keys")
+    differ += [f"adam {i} {n}" for i, m in moments_a.items() for n in ("exp_avg", "exp_avg_sq", "step")
+               if i in moments_b and not torch.equal(m[n], moments_b[i][n])]
+    if a.ema is not None:
+        if b.ema is None or set(a.ema) != set(b.ema):
+            differ.append("ema keys")
+        else:
+            differ += [f"ema {n}" for n, v in a.ema.items() if not torch.equal(v, b.ema[n])]
+    if a.sampler_state is not None and not (
+            b.sampler_state is not None
+            and torch.equal(a.sampler_state.loss_history, b.sampler_state.loss_history)
+            and torch.equal(a.sampler_state.loss_counts, b.sampler_state.loss_counts)):
+        differ.append("sampler state")
+    return differ
 
 
 def train_loop_phase(here, dev, train_step_busy_ms, results):
@@ -1016,15 +1118,11 @@ def train_loop_phase(here, dev, train_step_busy_ms, results):
     probe, epoch = restore_checkpoint(exp_dir, exp_b.init_state())
     if epoch != 1 or probe.step != 4 or probe.optimizer.steps != 4:
         raise AssertionError(f"restored epoch {epoch}, step {probe.step}, schedule {probe.optimizer.steps}")
-    differ = [k for k, v in state_a.model.state_dict().items() if not torch.equal(v, probe.model.state_dict()[k])]
-    moments_a = state_a.optimizer.optimizer.state_dict()["state"]
-    moments_b = probe.optimizer.optimizer.state_dict()["state"]
-    differ += [f"adam {i} {n}" for i, m in moments_a.items() for n in ("exp_avg", "exp_avg_sq", "step")
-               if not torch.equal(m[n], moments_b[i][n])]
-    n_moments = len(moments_a)
-    if differ or set(moments_a) != set(moments_b) or not n_moments:
+    differ = state_differences(state_a, probe)
+    n_moments = len(probe.optimizer.optimizer.state_dict()["state"])
+    if differ:
         raise AssertionError(f"restored state differs from run A's: {differ[:5]}")
-    del state_a, exp_a, probe, moments_a, moments_b
+    del state_a, exp_a, probe
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1295,6 +1393,219 @@ def co3d_phase(here, dev, results):
                          "mean_wall_s": sum(walls) / len(walls), "mean_wait_s": sum(waits) / len(waits)}})
     if not copy_bitwise or not small_bitwise:
         raise AssertionError("a CO3D batch on the card differs from the host batch")
+    return [e["train"]["sec/it"] for e in hist]
+
+
+def profiled_device_ms(fn, n):
+    """(device busy ms per call, kernel launches per call) of `fn` over n
+    calls, from torch.profiler; the device's idle gaps are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3 / n, sum(e.count for e in events) / n
+
+
+def train_full_phase(here, dev, results, co3d_s_per_step):
+    """The whole training step and its use at inference, at hydrant width on
+    the CO3D tree the `co3d` phase wrote (build/chip_smoke/co3d, with its
+    eval batches): `hydrant.yaml` with `ema_rate` 0.9999, the
+    loss-second-moment sampler and 2 optimizer steps per dispatch. Run A
+    (`Experiment(cfg).run(max_epochs=1)`: 2 dispatches, a 512^2 validation
+    frame, a checkpoint); a new Experiment's restored state, bitwise run A's
+    (model, Adam, EMA, sampler state); run B resumes for epoch 1 (the main
+    path `train_full`: counters zeroed before run A, read after run B: K2
+    twice an optimizer step, K3 twice a step and once a chunk of each
+    validation frame, nothing else). Then the EMA update's and the sampler
+    update's device time; a sampler warmed on the card from a seeded loss
+    history, whose 20,000 draws follow its weights; `run_eval_only` through
+    the EMA over the tree's eval batches at 800^2 (the main path
+    `eval_only`: K3 twice a chunk of each target, nothing else);
+    `generate_samples_main exp_dir=... use_ema=true`; and the narrow
+    loss-aware + EMA step card vs CPU."""
+    import torch
+
+    from holo_diffusion_torch import cli
+    from holo_diffusion_torch.config import load_config
+    from holo_diffusion_torch.experiment import Experiment
+    from holo_diffusion_torch.models import diffusion as gd
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.parallel.train_step import ts_validity_mask
+    from holo_diffusion_torch.random_draws import Draws
+    from holo_diffusion_torch.train.checkpoint import restore_checkpoint
+
+    root = os.path.join(here, "build", "chip_smoke", "co3d")
+    exp_dir = os.path.join(here, "build", "chip_smoke", "full_exp")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    ds = "data_source_ImplicitronDataSource_args."
+    prov = ds + "dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
+    dl = ds + "data_loader_map_provider_SequenceDataLoaderMapProvider_args."
+    k = 2
+    cfg = load_config("hydrant", [
+        ds + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2",
+        prov + f"dataset_root={root}", prov + "category=synthball",
+        dl + "dataset_length_train=132", dl + "dataset_length_val=1",
+        "disable_validation=false", "training_loop_ImplicitronTrainingLoop_args.visualize_interval=0",
+        "ema_rate=0.9999", f"{HYDRANT_MODEL}.diffusion_args.schedule_sampler_type=loss-second-moment",
+        f"steps_per_dispatch={k}", "eval_use_ema=true", f"exp_dir={exp_dir}"])
+    ck_log = logging.getLogger("holo_diffusion_torch.train.checkpoint")
+    ck_log.setLevel(logging.INFO)
+    records = _Records()
+    ck_log.addHandler(records)
+
+    # ---- the main path: run A, a bitwise restore, run B
+    reset_launch_counts_all()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exp_a = Experiment(cfg)
+    state_a, _ = exp_a.run(max_epochs=1)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    exp_b = Experiment(cfg)
+    probe, epoch = restore_checkpoint(exp_dir, exp_b.init_state())
+    if epoch != 0 or probe.step != 2 * k or probe.optimizer.steps != 2 * k:
+        raise AssertionError(f"restored epoch {epoch}, step {probe.step}, schedule {probe.optimizer.steps}")
+    differ = state_differences(state_a, probe)
+    n_ema = len(probe.ema)
+    if differ or set(probe.ema) != {n for n, _ in probe.model.named_parameters()}:
+        raise AssertionError(f"restored state differs from run A's: {differ[:5]}")
+    del state_a, exp_a, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state, stats = exp_b.run(max_epochs=2)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    counts = launch_counts_all()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit({"phase": "main_path", "path": "train_full", "launches": counts})
+    model = state.model
+    steps = state.step
+    frame_launches = model.num_passes * math.ceil(
+        model.render_image_height * model.render_image_width
+        / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
+    expect_launches(counts, "full training loop",
+                    exactly={"fused_decode_bwd": 2 * steps,
+                             "fused_decode_fwd_normals": 2 * steps + 2 * frame_launches},
+                    none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["fused_decode_bwd"]["train_full_launches"] = counts["fused_decode_bwd"]
+    results["fused_decode_fwd_normals"]["train_full_launches"] = counts["fused_decode_fwd_normals"]
+    credited = int(state.sampler_state.loss_counts.sum())
+    ema_lags = sum(not torch.equal(p.detach(), state.ema[n]) for n, p in model.named_parameters())
+    if steps != 4 * k or [e["epoch"] for e in stats.history] != [0, 1] or not steps <= credited <= 2 * steps:
+        raise AssertionError(f"full loop: {steps} steps, history {stats.history}, {credited} credits")
+    if state.sampler_state.loss_history.device.type != torch.device(dev).type or not ema_lags:
+        raise AssertionError("the sampler state left the card, or the EMA equals the parameters")
+    if not all(math.isfinite(x) for e in stats.history for s in ("train", "val") for x in e[s].values()):
+        raise AssertionError(f"full loop: non-finite metrics {stats.history}")
+
+    # ---- the EMA update and the sampler update, alone
+    params = dict(model.named_parameters())
+    ema_ms, ema_launches = profiled_device_ms(lambda: gd.update_ema(state.ema, params, 0.9999), 5)
+    sched = model.schedule
+    T = sched.num_timesteps
+    ts = torch.tensor([T // 50, 9 * T // 10], device=dev)
+    losses = torch.tensor([0.25, 0.25], device=dev)
+    mask = ts_validity_mask(True)
+    sampler_ms, sampler_launches = profiled_device_ms(
+        lambda: gd.loss_aware_update(state.sampler_state, ts, losses, mask), 20)
+    rays_per_chunk = model.chunk_size_grid // model.n_pts_per_ray_evaluation
+    del state, exp_b, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a sampler warmed on the card from a seeded history, then drawn
+    hist = warm_loss_history(T)
+    H = hist.shape[1]
+    t0 = time.perf_counter()
+    warm = gd.loss_aware_update(gd.LossSecondMomentState.create(T, H, device=dev),
+                                torch.arange(T, device=dev).repeat_interleave(H),
+                                torch.from_numpy(hist.reshape(-1)).to(dev))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    n_draws, n_bins = 20000, (10 if T % 10 == 0 else T)
+    drawn, weights = gd.loss_aware_sample_timesteps(
+        sched, warm, n_draws, Draws(generator=torch.Generator(device=dev).manual_seed(7)))
+    w = gd.loss_aware_weights(warm).double().cpu().numpy()
+    freq = torch.bincount(drawn, minlength=T).double().cpu().numpy() / n_draws
+    # over ten bins of T / 10 timesteps: on 1,000 single timesteps the
+    # sampling noise of 20,000 draws alone is a total variation of ~0.09
+    tv = 0.5 * float(abs(freq.reshape(n_bins, -1).sum(1) - w.reshape(n_bins, -1).sum(1)).sum())
+    warm_ok = (torch.equal(warm.loss_history.cpu(), torch.from_numpy(hist))
+               and bool((warm.loss_counts == H).all()) and bool(torch.isfinite(weights).all()))
+    sampler_check = {"warm_s": warm_s, "history_bitwise": warm_ok, "draws": n_draws, "bins": n_bins,
+                     "total_variation": tv, "weights_min_max": [float(weights.min()), float(weights.max())]}
+    if not warm_ok or tv >= 0.02:
+        raise AssertionError(f"the warmed sampler: {sampler_check}")
+
+    # ---- evaluation through the EMA (the eval_only main path)
+    reset_launch_counts_all()
+    timings = {}
+    t0 = time.perf_counter()
+    exp_e = Experiment(cfg)
+    res = exp_e.run_eval_only(timings=timings)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    n_targets = len(exp_e.data.eval_batches)
+    eval_hw = [exp_e.data_args["image_height"], exp_e.data_args["image_width"]]
+    del exp_e
+    eval_counts = launch_counts_all()
+    emit({"phase": "main_path", "path": "eval_only", "launches": eval_counts})
+    chunks = math.ceil(eval_hw[0] * eval_hw[1] / rays_per_chunk)
+    expect_launches(eval_counts, "evaluation", exactly={"fused_decode_fwd_normals": res["n_evals"] * 2 * chunks},
+                    none=("fused_decode_bwd", "fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["fused_decode_fwd_normals"]["eval_only_launches"] = eval_counts["fused_decode_fwd_normals"]
+    dumped = os.path.join(exp_dir, "eval_results_epoch_00000001.json")
+    with open(dumped) as f:
+        keys = sorted(json.load(f))
+    overall = res["overall"]
+    if (res["protocol"] != "eval_batches" or res["n_evals"] != n_targets or keys != sorted(res)
+            or not all(math.isfinite(overall[m]) for m in ("psnr", "psnr_fg", "ssim", "mask_iou"))):
+        raise AssertionError(f"eval_only: {res['protocol']}, {res['n_evals']} targets, {overall}, keys {keys}")
+
+    # ---- sampling through the EMA from the checkpoint
+    out_dir = os.path.join(here, "build", "chip_smoke", "serve_full")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    reset_launch_counts_all()
+    t0 = time.perf_counter()
+    paths = cli.generate_samples_main([f"exp_dir={exp_dir}", "num_samples=1", "n_flyaround_poses=1",
+                                       "use_ddim=true", "max_iter=10", "use_ema=true",
+                                       f"output_directory={out_dir}"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_counts = launch_counts_all()
+    expect_launches(serve_counts, "sampling through the EMA", exactly={"fused_decode_fwd_normals": frame_launches},
+                    none=("fused_decode_bwd", "fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    png = read_png_rgb(os.path.join(out_dir, "sample_00000", "images_render_frames", "frame_00000.png"))
+
+    counts_check = train_check_phase(dev, "train_full_card_vs_cpu", loss_aware_ema=True)
+    ck = {"saves": [{"bytes": r.args[1], "s": r.args[2]} for r in records.records if r.msg.startswith("saved")],
+          "restores_s": [r.args[1] for r in records.records if r.msg.startswith("restored")]}
+    ck_log.removeHandler(records)
+    per_call = [e["train"]["sec/it"] for e in stats.history]
+    emit({"phase": "train_full", "epochs": 2, "steps_per_dispatch": k, "optimizer_steps": steps,
+          "ema_rate": 0.9999, "ema_tensors": n_ema, "schedule_sampler": "loss-second-moment",
+          "s_per_dispatch_stats": per_call, "s_per_optimizer_step": [x / k for x in per_call],
+          "co3d_s_per_step_same_run": co3d_s_per_step, "run_wall_s": {"A_epoch_0": wall_a, "B_epoch_1": wall_b},
+          "val_frame_s": [e["val"]["sec/it"] for e in stats.history], "sampler_credits": credited,
+          "ema_update": {"device_ms": ema_ms, "launches": ema_launches},
+          "sampler_update": {"device_ms": sampler_ms, "launches": sampler_launches, "pairs": 2},
+          "warm_sampler": sampler_check, "checkpoint": ck, "max_memory_allocated_gib": peak_gib,
+          "eval_only": {"s": eval_s, "targets": res["n_evals"], "size": eval_hw, "protocol": res["protocol"],
+                        "pool_s": timings["pool_s"], "render_s": timings["render_s"],
+                        "metrics_s": timings["metrics_s"], "overall": overall, "json_keys": keys},
+          "serve_ema": {"s": serve_s, "ddim_steps": 10, "streams": sorted(paths["sample_00000"]),
+                        "frame_shape": list(png.shape)},
+          "card_vs_cpu_launches": counts_check})
+    if len(ck["saves"]) != 2 or len(ck["restores_s"]) < 3:
+        raise AssertionError(f"checkpoint log: {ck}")
 
 
 def main():
@@ -1472,7 +1783,12 @@ def main():
     # ---- the training loop on CO3D-format data, after the models above are freed
     gc.collect()
     torch.cuda.empty_cache()
-    co3d_phase(here, dev, results)
+    co3d_s_per_step = co3d_phase(here, dev, results)
+
+    # ---- the whole training step and its use at inference, on the same tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full_phase(here, dev, results, co3d_s_per_step)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)

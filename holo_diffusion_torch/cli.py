@@ -6,10 +6,18 @@ Train (resumes from the last checkpoint in exp_dir when run again):
     python -m holo_diffusion_torch.cli train --config-name synthetic_debug.yaml \\
         --max-epochs 3 exp_dir=./out seed=7 [--device cpu]
 
-Sample grids and render fly-around videos, from a trained exp_dir or from a
-config with `.npz` weights (a seeded random init without `weights=`):
+Evaluate a trained exp_dir's checkpoint instead of training (novel-view
+metrics dumped to exp_dir/eval_results_epoch_*.json; `eval_use_ema=true`
+evaluates through the EMA of the parameters):
 
-    python -m holo_diffusion_torch.cli exp_dir=./out num_samples=2 use_ddim=true max_iter=50
+    python -m holo_diffusion_torch.cli train --config-name hydrant exp_dir=./out \
+        training_loop_ImplicitronTrainingLoop_args.eval_only=true
+
+Sample grids and render fly-around videos, from a trained exp_dir (through
+the EMA of its parameters with `use_ema=true`) or from a config with `.npz`
+weights (a seeded random init without `weights=`):
+
+    python -m holo_diffusion_torch.cli exp_dir=./out num_samples=2 use_ddim=true max_iter=50 [use_ema=true]
     python -m holo_diffusion_torch.cli config=hydrant weights=model.npz \\
         num_samples=2 render_size=[512,512] n_flyaround_poses=40 seed=0
 
@@ -39,7 +47,8 @@ from .weights import init_weights, load_weights
 
 def train_main(argv: Optional[List[str]] = None):
     """Train (or resume) the experiment a config describes; returns
-    (state, stats)."""
+    (state, stats), or the evaluation's results when the config sets
+    `training_loop_ImplicitronTrainingLoop_args.eval_only`."""
     parser = argparse.ArgumentParser(description="Train the port's HoloDiffusion model.")
     parser.add_argument("--config-name", default="base.yaml")
     parser.add_argument("--config-dir", default=None)
@@ -95,13 +104,17 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
     max_iter = opts.pop("max_iter", None)
     video_fps = int(opts.pop("video_fps", 20))
     save_voxel_features = bool(opts.pop("save_voxel_features", False))
+    # sample through the EMA of the parameters (a run trained with ema_rate > 0)
+    use_ema = bool(opts.pop("use_ema", False))
     device = resolve_device(opts.pop("device", None))
     if opts:
         raise ValueError(f"unknown args: {list(opts)}")
+    if use_ema and exp_dir is None:
+        raise ValueError("use_ema needs exp_dir= (the EMA lives in a training checkpoint)")
 
     set_full_precision()
     if exp_dir is not None:
-        model = load_experiment(exp_dir, overrides, render_size, device=device)[1].model
+        model = load_experiment(exp_dir, overrides, render_size, use_ema=use_ema, device=device)[1].model
     else:
         model = build_model(config or "hydrant", overrides, render_size)
         if weights:

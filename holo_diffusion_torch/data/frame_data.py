@@ -6,7 +6,7 @@ converts them on the device (models/metrics.py:as_unit_float)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -51,3 +51,22 @@ class FrameData:
         return FrameData(self.camera[idx], *(
             None if getattr(self, f.name) is None else getattr(self, f.name)[idx]
             for f in dataclasses.fields(self)[1:]))
+
+    @classmethod
+    def stack_steps(cls, batches: Sequence["FrameData"]) -> "FrameData":
+        """K batches of equal shapes as one FrameData whose every tensor
+        has a leading step axis (K, B, ...): the batch of one call of a
+        train step with `steps_per_call` K."""
+        first = batches[0]
+
+        def stacked(get):
+            return torch.stack([get(b) for b in batches])
+
+        camera = PerspectiveCameras(*(stacked(lambda b, n=f.name: getattr(b.camera, n))
+                                      for f in dataclasses.fields(first.camera)))
+        return cls(camera, *(None if getattr(first, f.name) is None else stacked(lambda b, n=f.name: getattr(b, n))
+                             for f in dataclasses.fields(cls)[1:]))
+
+    def step(self, k: int) -> "FrameData":
+        """The k-th batch of a step-stacked FrameData (`stack_steps`)."""
+        return self._map(lambda x: x[k])

@@ -9,7 +9,11 @@ Every epoch reseeds numpy and `random` with seed + epoch and draws the
 step's random values from `torch.Generator(device).manual_seed(seed +
 epoch)`, so an epoch run after a resume draws what it draws in an
 uninterrupted run. `run` resumes from the last checkpoint in `exp_dir` by
-default. Runs on CUDA unless the caller passes `device="cpu"`.
+default; with `steps_per_dispatch` K it groups K batches per call of the
+train step; with `eval_only` it evaluates the checkpoint instead
+(`run_eval_only`), and with `disable_testing: false` it evaluates novel
+views at `test_interval` and when finished. Runs on CUDA unless the caller
+passes `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import logging
 import os
 import random
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +39,8 @@ from .data.co3d import CO3DDataProvider
 from .data.frame_data import FrameData
 from .data.source import AsyncLoader, SyntheticDataProvider, WholeDatasetLoader, epoch_loader
 from .device import DeviceLike, resolve_device
+from .evaluation import evaluate_new_view_synthesis
+from .models.diffusion import LossSecondMomentState
 from .models.holo_model import HoloDiffusionModel
 from .models.metrics import preprocess_input
 from .parallel.train_step import TrainState, make_eval_step, make_train_step
@@ -60,24 +66,17 @@ def seed_all_random_engines(seed: int):
     random.seed(seed)
 
 
-def _check_ported(cfg, loop_args, diffusion_args) -> None:
+def _check_ported(cfg, loop_args) -> None:
     """Raise for each feature the config asks for that the port lacks,
     naming the ROADMAP.md §1 item that ports it."""
     validation_on = loop_args["validation_interval"] > 0 and not cfg.get("disable_validation", False)
-    testing = not cfg.get("disable_testing", True) and (
-        loop_args["test_interval"] > 0 or loop_args["test_when_finished"])
     unported = [
-        (float(cfg.get("ema_rate", 0.0)) > 0.0, "ema_rate > 0 (EMA)", 2),
-        ((diffusion_args or {}).get("schedule_sampler_type", "uniform") != "uniform",
-         "schedule_sampler_type other than uniform", 2),
-        (int(cfg.get("steps_per_dispatch", 1)) > 1, "steps_per_dispatch > 1", 2),
         (bool(cfg.get("compact_sources", False)), "compact_sources", 3),
         (bool(cfg.get("packed_transfer", False)), "packed_transfer", 3),
-        (bool(loop_args["eval_only"]), "eval_only", 4),
-        (testing, "test evaluation (disable_testing: false)", 4),
         (bool(loop_args["profile"]), "training_loop profile", 6),
         (validation_on and loop_args["visualize_interval"] > 0,
          "visualize_interval > 0 with validation on (visualizations)", 6),
+        (bool(cfg.get("lpips_vgg_weights_path")), "lpips_vgg_weights_path (LPIPS in the evaluation)", 6),
     ]
     for asked, what, item in unported:
         if asked:
@@ -114,7 +113,7 @@ class Experiment:
         self.data_args = data_source_args_from_config(cfg)
         ds_cfg = cfg.get("data_source_ImplicitronDataSource_args", {})
         provider = ds_cfg.get("dataset_map_provider_class_type", "JsonIndexDatasetMapProviderV2")
-        _check_ported(cfg, self.loop_args, self.model_args.get("diffusion_args"))
+        _check_ported(cfg, self.loop_args)
         seed_all_random_engines(self.seed)
         if cfg.get("detect_anomaly", False):
             # the reference's detect_anomaly (experiment.py:181-184)
@@ -129,6 +128,13 @@ class Experiment:
         self.lr_schedule = make_lr_schedule(
             self.opt_args["optimizer"]["lr"], **self.opt_args["schedule"],
             steps_per_epoch=self.n_batches_train)
+        # the timestep sampler (diffusion_utils.py:97,113), uniform without diffusion
+        diff_args = self.model_args.get("diffusion_args") or {}
+        self.schedule_sampler = (diff_args.get("schedule_sampler_type", "uniform")
+                                 if self.model_args.get("diffusion_enabled", True) else "uniform")
+        self.ema_rate = float(cfg.get("ema_rate", 0.0))
+        # optimizer steps per call of the train step
+        self.steps_per_dispatch = max(1, int(cfg.get("steps_per_dispatch", 1)))
 
     def _build_data_source(self, ds_cfg: dict, provider: str):
         """The synthetic scenes (made on the device) or CO3Dv2 (cached on
@@ -149,13 +155,108 @@ class Experiment:
 
     def init_state(self) -> TrainState:
         """The seeded initialisation (weights.init_weights, drawn on the
-        CPU), on the device, with a fresh optimizer."""
+        CPU), on the device, with a fresh optimizer, the loss-second-moment
+        sampler's empty state when that sampler is on, and an EMA that
+        starts at the parameters when `ema_rate` > 0."""
         init_weights(self.model, self.seed)
         self.model.to(self.device)
         logger.info("model has %.2fM params", sum(p.numel() for p in self.model.parameters()) / 1e6)
         opt = make_optimizer(self.model.named_parameters(), **self.opt_args["optimizer"],
                              schedule=self.lr_schedule)
-        return TrainState(self.model, opt)
+        sampler_state = None
+        if self.schedule_sampler == "loss-second-moment":
+            sampler_state = LossSecondMomentState.create(
+                (self.model_args.get("diffusion_args") or {}).get("num_steps", 1000), device=self.device)
+        return TrainState.create(self.model, opt, sampler_state=sampler_state, ema=self.ema_rate > 0.0)
+
+    def _restore(self, state: TrainState):
+        """The checkpoint the config asks for (the last unless
+        `resume_epoch`), restored into `state`: (state, epoch), or (None,
+        -1) when resuming is off or there is none (which raises under
+        `force_resume`)."""
+        mf = self.cfg.get("model_factory_ImplicitronModelFactory_args", {})
+        if not mf.get("resume", True):
+            return None, -1
+        restored, ep = restore_checkpoint(self.exp_dir, state, mf.get("resume_epoch", -1))
+        if restored is None and mf.get("force_resume", False):
+            raise FileNotFoundError(f"force_resume: no checkpoint in {self.exp_dir}")
+        return restored, ep
+
+    def _eval_scenes(self, limit: int = -1):
+        """The scenes novel-view evaluation runs on: the val split's, or the
+        train split's when val is empty; the first `limit` (all when
+        negative), loaded one at a time."""
+        ds = self.data.val if len(self.data.val) else self.data.train
+        return ds.iter_scenes(limit)
+
+    def run_eval_only(self, use_ema: Optional[bool] = None, timings: Optional[Dict[str, List[float]]] = None):
+        """Evaluation only (training_loop.py:177-193): restore the checkpoint
+        the config asks for, evaluate novel views over the held-out scenes
+        (the dataset's eval batches when it loaded them, the CO3D challenge
+        protocol), dump `eval_results_epoch_%08d.json` into exp_dir and
+        return the results. `use_ema` evaluates through the EMA of the
+        parameters (a run trained with ema_rate > 0); None reads the
+        config's `eval_use_ema`. `timings` receives each target's seconds by
+        phase (`evaluate_new_view_synthesis`)."""
+        if use_ema is None:
+            use_ema = bool(self.cfg.get("eval_use_ema", False))
+        os.makedirs(self.exp_dir, exist_ok=True)
+        state = self.init_state()
+        restored, epoch = self._restore(state)
+        if restored is None:
+            logger.warning("eval_only: no checkpoint found; evaluating the freshly initialised model")
+        else:
+            state = restored
+            logger.info("eval_only: restored epoch %d", epoch)
+        if use_ema:
+            if state.ema is None:
+                raise ValueError("eval_use_ema: the checkpoint carries no EMA of the parameters "
+                                 "(train with ema_rate > 0)")
+            state.swap_in_ema()
+        eval_batches, scenes = None, []
+        if getattr(self.data, "eval_batches", None):
+            # assembled one at a time: a release category has thousands
+            eval_batches = (self.data.get_eval_batch(i) for i in range(len(self.data.eval_batches)))
+        else:
+            scenes = self._eval_scenes()
+        ev = self.loop_args.get("evaluator_ImplicitronEvaluator_args", {})
+        state.model.eval()
+        res = evaluate_new_view_synthesis(
+            state.model, scenes,
+            difficulty_bin_breaks=tuple(ev.get("camera_difficulty_bin_breaks", (0.97, 0.98))),
+            eval_batches=eval_batches,
+            dump_path=os.path.join(self.exp_dir, f"eval_results_epoch_{max(epoch, 0):08d}.json"),
+            device=self.device,
+            timings=timings,
+        )
+        logger.info("eval_only results: %s", res["overall"])
+        return res
+
+    def _test_eval(self, state: TrainState, dump_name: str):
+        """Novel-view evaluation of the state's model on the first 4 eval
+        scenes, dumped to exp_dir/`dump_name` (training_loop.py:273-279)."""
+        state.model.eval()
+        res = evaluate_new_view_synthesis(state.model, self._eval_scenes(4),
+                                          dump_path=os.path.join(self.exp_dir, dump_name), device=self.device)
+        state.model.train()
+        return res
+
+    def _group_steps(self, batches):
+        """`steps_per_dispatch` batches at a time, stacked on a leading step
+        axis where they lie (a host batch is then pinned and copied as one);
+        single batches when it is 1."""
+        k = self.steps_per_dispatch
+        if k == 1:
+            yield from batches
+            return
+        group = []
+        for b in batches:
+            group.append(b)
+            if len(group) == k:
+                yield FrameData.stack_steps(group)
+                group = []
+        if group:
+            logger.warning("dropping a trailing group of %d < %d batches", len(group), k)
 
     # ------------------------------------------------------------------
     def _val_epoch(self, state: TrainState, stats: Stats, eval_step, epoch: int):
@@ -211,28 +312,33 @@ class Experiment:
     def run(self, max_epochs: Optional[int] = None):
         """Train from the last checkpoint in `exp_dir` (unless `resume` is
         off) up to `max_epochs` (the config's when None); each epoch ends
-        with a validation epoch (when on), its stats and a checkpoint.
-        Returns (state, stats)."""
+        with a validation epoch (when on), a test evaluation (when on and
+        due), its stats and a checkpoint. Returns (state, stats); with
+        `eval_only` the results of `run_eval_only` instead."""
         os.makedirs(self.exp_dir, exist_ok=True)
         dump_expconfig(self.cfg, self.exp_dir)
+        if self.loop_args["eval_only"]:
+            return self.run_eval_only()
         state = self.init_state()
         stats = Stats.load_or_new(os.path.join(self.exp_dir, "train_stats.json"),
                                   log_vars=_model_cfg_log_vars(self.cfg))
         start_epoch = 0
-        mf = self.cfg.get("model_factory_ImplicitronModelFactory_args", {})
-        if mf.get("resume", True):
-            restored, ep = restore_checkpoint(self.exp_dir, state, mf.get("resume_epoch", -1))
-            if restored is not None:
-                state, start_epoch = restored, ep + 1
-                logger.info("resumed from epoch %d", ep)
-            elif mf.get("force_resume", False):
-                raise FileNotFoundError(f"force_resume: no checkpoint in {self.exp_dir}")
+        restored, ep = self._restore(state)
+        if restored is not None:
+            state, start_epoch = restored, ep + 1
+            logger.info("resumed from epoch %d", ep)
 
-        train_step = make_train_step(self.model, state.optimizer)
+        k = self.steps_per_dispatch
+        train_step = make_train_step(self.model, state.optimizer, schedule_sampler=self.schedule_sampler,
+                                     ema_rate=self.ema_rate, steps_per_call=k)
         eval_step = make_eval_step(self.model)
         max_epochs = max_epochs or self.loop_args["max_epochs"]
         print_interval = self.loop_args["metric_print_interval"]
         val_interval = self.loop_args["validation_interval"]
+        test_interval = self.loop_args["test_interval"]
+        testing = not self.cfg.get("disable_testing", True)
+        # calls of the train step an epoch, each of k optimizer steps
+        n_calls = max(1, self.n_batches_train // k)
         stats.epoch = start_epoch - 1
 
         for epoch in range(start_epoch, max_epochs):
@@ -240,9 +346,9 @@ class Experiment:
             stats.new_epoch()
             generator = torch.Generator(device=self.device).manual_seed(self.seed + epoch)
             if self.loop_args["whole_dataset_batch"]:
-                loader = WholeDatasetLoader(self.data.train, self.batch_size, self.n_batches_train, self.seed)
+                loader = WholeDatasetLoader(self.data.train, self.batch_size, n_calls * k, self.seed)
             else:
-                loader = epoch_loader(self.data.train, self.batch_size, self.n_batches_train, self.seed + epoch)
+                loader = epoch_loader(self.data.train, self.batch_size, n_calls * k, self.seed + epoch)
 
             # Step N's metrics are read after step N+1 is launched, so the
             # host does not wait for the device between steps; a status
@@ -254,7 +360,7 @@ class Experiment:
                     stats.update(_host_floats(pending.popleft()), "train")
 
             self.model.train()
-            for it, batch in enumerate(AsyncLoader(loader, transfer=self._to_device)):
+            for it, batch in enumerate(AsyncLoader(self._group_steps(loader), transfer=self._to_device)):
                 state, metrics = train_step(state, batch, generator)
                 pending.append(metrics)
                 if print_interval and it % print_interval == 0:
@@ -269,8 +375,14 @@ class Experiment:
                 self._val_epoch(state, stats, eval_step, epoch)
                 logger.info(stats.status_line("val"))
 
+            if testing and test_interval > 0 and epoch % test_interval == 0:
+                res = self._test_eval(state, f"eval_epoch_{epoch:08d}.json")
+                logger.info("test eval @ %d: %s", epoch, res["overall"])
+
             stats.finalize_epoch()
             if self.loop_args["store_checkpoints"]:
                 save_checkpoint(self.exp_dir, epoch, state, stats,
                                 purge=self.loop_args["store_checkpoints_purge"])
+        if testing and self.loop_args["test_when_finished"]:
+            self._test_eval(state, "eval_final.json")
         return state, stats

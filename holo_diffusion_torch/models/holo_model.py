@@ -92,10 +92,11 @@ class HoloDiffusionModel(nn.Module):
                 raise ValueError(f"unknown sampling mode {mode!r}")
         if sampling_mode_evaluation != "full_grid":
             raise NotImplementedError(
-                f"sampling_mode_evaluation={sampling_mode_evaluation!r}: only full_grid"
+                f"sampling_mode_evaluation={sampling_mode_evaluation!r}: only full_grid is ported "
+                "(ROADMAP.md §1 item 4)"
             )
         if stratified_point_sampling_evaluation:
-            raise NotImplementedError("stratified evaluation sampling is not ported")
+            raise NotImplementedError("stratified evaluation sampling is not ported yet (ROADMAP.md §1 item 4)")
         self.resol = resol
         self.volume_extent = volume_extent
         self.feature_size = feature_size
@@ -191,13 +192,19 @@ class HoloDiffusionModel(nn.Module):
         return v.reshape(self.resol, self.resol, self.resol, self.feature_size)
 
     def denoise(
-        self, voxel_features: torch.Tensor, training: bool, draws: Optional[Draws] = None
+        self,
+        voxel_features: torch.Tensor,
+        training: bool,
+        draws: Optional[Draws] = None,
+        timesteps: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The diffusion mechanism on (1, r, r, r, C). Training: q_sample at
         t, the denoiser's clipped x0 prediction, then with probability
         `bootstrap_prob` a second q_sample + prediction at t2 from it. The
         second pass runs only when its coin comes up: the pass that is not
         selected has no gradient, so skipping it gives the same result.
+        `timesteps` (2,) gives (t, t2), as the loss-aware sampler of the
+        training step draws them; without it they are drawn uniformly.
         Evaluation: tanh of the denoiser at t=0."""
         aux: Dict[str, torch.Tensor] = {}
         if not self.net_3d_enabled:
@@ -205,8 +212,9 @@ class HoloDiffusionModel(nn.Module):
         dev = voxel_features.device
         if self.diffusion_enabled and training:
             sched = self.schedule
-            ts, _ = gd.uniform_sample_timesteps(sched, 2, draws, dev)
-            t, t2 = ts[:1], ts[1:]
+            if timesteps is None:
+                timesteps, _ = gd.uniform_sample_timesteps(sched, 2, draws, dev)
+            t, t2 = timesteps[:1], timesteps[1:]
             x_t = gd.q_sample(sched, voxel_features, t, draws.normal("noise", voxel_features.shape, dev))
             aux["x_t"], aux["timesteps"] = x_t, t
             v = gd.p_mean_variance(sched, self.net_3d, x_t, t, clip_denoised=True)["pred_xstart"]
@@ -332,6 +340,7 @@ class HoloDiffusionModel(nn.Module):
         depth_map: Optional[torch.Tensor] = None,
         training: bool = False,
         draws: Any = None,
+        timesteps: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """The pipeline (holo_diffusion_model.py:201-540).
 
@@ -339,7 +348,8 @@ class HoloDiffusionModel(nn.Module):
         n_targets are render targets, the rest pooling sources. Without
         images, `voxel_features` (1, r, r, r, C) is rendered (serving).
         Training needs `draws`: a `torch.Generator`, a mapping of injected
-        draws, or a `Draws`. Returns the JAX package's preds: renders, ray
+        draws, or a `Draws`; `timesteps` (2,) replaces the uniform draw of
+        the two diffusion passes. Returns the JAX package's preds: renders, ray
         bundle, `loss_*` metrics, `images/depths/masks[/normals]_render` and
         the weighted `objective`.
         """
@@ -373,7 +383,7 @@ class HoloDiffusionModel(nn.Module):
             raise ValueError("give image_rgb or voxel_features (sampling.py samples grids)")
 
         preds: Dict[str, Any] = {}
-        voxel_features, aux = self.denoise(voxel_features, training, draws)
+        voxel_features, aux = self.denoise(voxel_features, training, draws, timesteps)
         preds.update({f"diffusion_{k}": v for k, v in aux.items()})
         preds["voxel_features"] = voxel_features
 

@@ -5,7 +5,8 @@ training forward needs is asked for by name: a value passed in is used as
 it is (the tests pass the JAX package's draws), any other comes from an
 explicit `torch.Generator`. Names:
 
-  timesteps          (2,) int64   diffusion t and bootstrap t2
+  timesteps          (2,) int64   diffusion t and bootstrap t2 (uniform, or
+                                  categorical under the loss-aware sampler)
   noise, noise2      (1, r, r, r, C) q_sample noises of the two passes
   take_boot          bool         the bootstrap coin
   ray_pixel_u        (B, n_rays)  mask-sampling uniforms
@@ -69,6 +70,17 @@ class Draws:
         v = self._given(name, shape, device, torch.int64)
         if v is None:
             v = torch.randint(0, high, tuple(shape), generator=self.generator, device=device)
+        return v
+
+    def categorical(self, name: str, probs: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+        """Indices into `probs` (a (n,) distribution on its device) drawn
+        with replacement, int64. Drawn by inverting the CDF at uniforms, so
+        nothing is read on the host."""
+        v = self._given(name, shape, probs.device, torch.int64)
+        if v is None:
+            cdf = torch.cumsum(probs, 0)
+            u = torch.rand(tuple(shape), generator=self.generator, device=probs.device, dtype=cdf.dtype)
+            v = torch.clamp(torch.searchsorted(cdf, u * cdf[-1], right=True), max=probs.shape[0] - 1)
         return v
 
     def coin(self, name: str, p: float) -> bool:

@@ -5,7 +5,9 @@ orbax).
 Layout: `exp_dir/model_epoch_%08d/checkpoint.pt`, one `torch.save` file of
 {"model": the model's state_dict (BN statistics included), "optimizer": the
 torch optimizer's state_dict, "optimizer_steps": `Optimizer.steps` (the LR
-schedule's position), "step": `TrainState.step`, "epoch"}; the stats go to
+schedule's position), "step": `TrainState.step`, "epoch"}, plus "ema" (the
+EMA of the parameters, by name) and "sampler_state" ({"loss_history",
+"loss_counts"}) when the state holds them; the stats go to
 `exp_dir/train_stats.json`.
 """
 from __future__ import annotations
@@ -59,14 +61,19 @@ def save_checkpoint(exp_dir: str, epoch: int, state, stats=None, purge: int = 1)
         path = checkpoint_dir(exp_dir, epoch)
         os.makedirs(path, exist_ok=True)
         target = os.path.join(path, CHECKPOINT_FILE)
+        ckpt = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.optimizer.state_dict(),
+            "optimizer_steps": state.optimizer.steps,
+            "step": state.step,
+            "epoch": epoch,
+        }
+        if state.ema is not None:
+            ckpt["ema"] = state.ema
+        if state.sampler_state is not None:
+            ckpt["sampler_state"] = dict(vars(state.sampler_state))
         with open(target + ".tmp", "wb") as f:
-            torch.save({
-                "model": state.model.state_dict(),
-                "optimizer": state.optimizer.optimizer.state_dict(),
-                "optimizer_steps": state.optimizer.steps,
-                "step": state.step,
-                "epoch": epoch,
-            }, f)
+            torch.save(ckpt, f)
         os.replace(target + ".tmp", target)
         logger.info("saved %s: %d bytes in %.3f s", target, os.path.getsize(target), time.perf_counter() - t0)
         if stats is not None:
@@ -81,7 +88,10 @@ def save_checkpoint(exp_dir: str, epoch: int, state, stats=None, purge: int = 1)
 def restore_checkpoint(exp_dir: str, state_like, epoch: int = -1):
     """Load epoch `epoch` (the last when negative) into `state_like` in
     place, on the device of its model. Returns (state, epoch), or (None, -1)
-    when there is no such checkpoint."""
+    when there is no such checkpoint. A state that holds an EMA or a
+    sampler state takes them from the file and raises, naming the file,
+    when it has none; a file's EMA or sampler state that the state does
+    not hold is left unread."""
     if epoch >= 0:
         path = checkpoint_dir(exp_dir, epoch)
         if not os.path.isdir(path):
@@ -95,7 +105,16 @@ def restore_checkpoint(exp_dir: str, state_like, epoch: int = -1):
     t0 = time.perf_counter()
     target = os.path.join(path, CHECKPOINT_FILE)
     ckpt = torch.load(target, map_location=module_device(state_like.model), weights_only=True)
+    for key, held in (("ema", state_like.ema), ("sampler_state", state_like.sampler_state)):
+        if held is not None and key not in ckpt:
+            raise ValueError(f"{target} holds no {key!r}, which this run's state expects")
     state_like.model.load_state_dict(ckpt["model"])
+    if state_like.ema is not None:
+        if set(ckpt["ema"]) != set(state_like.ema):
+            raise ValueError(f"{target}: the EMA's parameter names differ from the model's")
+        state_like.ema = ckpt["ema"]
+    if state_like.sampler_state is not None:
+        state_like.sampler_state = type(state_like.sampler_state)(**ckpt["sampler_state"])
     # torch keeps a non-capturable optimizer's step counts on the host
     for s in ckpt["optimizer"]["state"].values():
         if "step" in s:

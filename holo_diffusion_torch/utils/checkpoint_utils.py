@@ -24,10 +24,11 @@ def load_experiment(
 ) -> Tuple[Experiment, TrainState]:
     """(experiment, restored TrainState) on `device` (CUDA unless "cpu");
     raises FileNotFoundError when `exp_dir` holds no checkpoint.
-    `render_size` (height, width) replaces the config's render size."""
+    `render_size` (height, width) replaces the config's render size.
+    `use_ema` copies the EMA of the parameters (trained with ema_rate > 0)
+    into the model, so sampling and evaluation go through the averaged
+    weights; it raises when the run kept no EMA."""
     device = resolve_device(device)
-    if use_ema:
-        raise NotImplementedError("use_ema: EMA is not ported yet (ROADMAP.md §1 item 2)")
     cfg = load_config(os.path.join(exp_dir, "expconfig.yaml"))
     cfg["exp_dir"] = exp_dir
     if overrides:
@@ -40,4 +41,9 @@ def load_experiment(
     restored, _ = restore_checkpoint(exp_dir, exp.init_state())
     if restored is None:
         raise FileNotFoundError(f"no checkpoint found in {exp_dir}")
+    if use_ema:
+        if restored.ema is None:
+            raise ValueError(f"use_ema requested but {exp_dir} was trained without EMA "
+                             "(set ema_rate > 0 in the training config)")
+        restored.swap_in_ema()
     return exp, restored

@@ -78,7 +78,7 @@ def render_flyaround(
     as in the JAX package (see ROADMAP.md, Faults).
     """
     if not sample_mode:
-        raise NotImplementedError("reconstruction mode needs view pooling (training slice)")
+        raise NotImplementedError("reconstruction mode is not ported yet (ROADMAP.md §1 item 4)")
     dev = place(model, device)
     cameras = simple_360_cameras(n_flyaround_poses, dist=trajectory_distance, up=up).to(dev)
     if voxel_features is None:

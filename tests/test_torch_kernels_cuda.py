@@ -1,8 +1,9 @@
 """The CUDA kernels of holo_diffusion_torch (the fused decode forward, K1/K3,
 and its backward K2, also where points share voxels; the trilinear sample K4 with its grid and points
 cotangents K5/K6; the one-hot-formulation sample K7) against their plain
-PyTorch versions, on the card; and the training loop of the tiny synthetic
-experiment (run, checkpoint, resume) on the card. Every test here is marked `cuda` and skips without a
+PyTorch versions, on the card; the training loop of the tiny synthetic
+experiment (run, checkpoint, resume) on the card; and the whole training
+step (loss-aware sampler, EMA, steps per call) and evaluation on the card. Every test here is marked `cuda` and skips without a
 CUDA device. The file imports neither JAX nor the JAX package, so it also
 runs where JAX is not installed, without the suite's conftest:
 
@@ -742,3 +743,98 @@ def test_co3d_experiment_runs_on_the_card(tmp_path):
     assert all(np.isfinite(v) for e in stats.history for s in ("train", "val") for v in e[s].values())
     state, stats = Experiment(cfg).run(max_epochs=2)
     assert state.step == 4 and [e["epoch"] for e in stats.history] == [0, 1]
+
+
+@pytest.mark.cuda
+def test_loss_aware_ema_step_on_the_card_matches_the_cpu():
+    """`chip_smoke.train_check_phase`'s whole step (the loss-second-moment
+    sampler from a warmed state, the EMA at rate 0.9, two SGD steps in one
+    call) on a narrow model, card against CPU under injected draws: the
+    objective 1e-4, the gradients, the EMA's change 2e-3 of scale, the
+    sampler's counts exact and history 1e-4 (it raises otherwise). In full
+    float32, as chip_smoke.py runs it: cuDNN convolutions default to TF32."""
+    import os
+    import sys
+
+    from holo_diffusion_torch.device import set_full_precision
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    dev = _device()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    set_full_precision()
+    try:
+        counts = chip_smoke.train_check_phase(dev, "card_test_loss_aware_ema", loss_aware_ema=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    # K2 once a render pass: two passes an optimizer step, two steps
+    assert counts["fused_decode_bwd"] == 4 and counts["fused_decode_fwd_normals"] > 0
+
+
+@pytest.mark.cuda
+def test_sampler_and_ema_updates_do_not_sync_the_host():
+    """The sampler's draw, importance weights and update, and the EMA, with
+    CUDA's sync debug mode raising on any host synchronisation: the state
+    stays on the card and nothing is read back."""
+    from holo_diffusion_torch.models import diffusion as gd
+    from holo_diffusion_torch.parallel.train_step import importance_scale, ts_validity_mask
+    from holo_diffusion_torch.random_draws import Draws
+
+    dev = _device()
+    T, H = 1000, 10
+    state = gd.LossSecondMomentState(torch.rand(T, H, device=dev), torch.full((T,), H, dtype=torch.int64, device=dev))
+    sched = gd.make_named_schedule(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {str(n): torch.randn(n, device=dev) for n in (7, 1000, 65536)}
+    ema = {k: p.clone() for k, p in params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for take_boot in (True, False):
+            t, w = gd.loss_aware_sample_timesteps(sched, state, 2, Draws(generator=gen))
+            loss = 0.5 * importance_scale(w, take_boot)
+            state = gd.loss_aware_update(state, t, loss.expand(2), ts_validity_mask(take_boot))
+            gd.update_ema(ema, params, 0.99)
+        cold = gd.loss_aware_weights(gd.LossSecondMomentState.create(T, H, device=dev))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.loss_history.device.type == state.loss_counts.device.type == "cuda"
+    assert torch.allclose(cold, torch.full_like(cold, 1.0 / T))
+
+
+@pytest.mark.cuda
+def test_full_experiment_and_eval_only_on_the_card(tmp_path):
+    """The tiny CO3D experiment with no device given, with EMA, the
+    loss-aware sampler, 2 steps per dispatch and test evaluation: K2 twice
+    an optimizer step, the sampler state on the card; then `eval_only`
+    through the EMA over the tree's eval batches."""
+    import json
+    import os
+
+    from torch_tiny_config import LOOP, MODEL, tiny_co3d_cfg
+
+    from holo_diffusion_torch.data.synthetic_co3d import write_synthetic_co3d
+    from holo_diffusion_torch.experiment import Experiment
+
+    _device()
+    root = str(tmp_path / "co3d")
+    write_synthetic_co3d(root, n_seq=2, n_frames=6, H=48, W=64, seed=3, n_val_frames=1, n_known_per_eval_batch=3)
+    prov = "data_source_ImplicitronDataSource_args.dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
+    extra = ["ema_rate=0.9", MODEL + "diffusion_args.schedule_sampler_type=loss-second-moment", "steps_per_dispatch=2",
+             "disable_testing=false", LOOP + "test_interval=1", prov + "load_eval_batches=true"]
+    before = fd.launch_counts()["fused_decode_bwd"]
+    state, stats = Experiment(tiny_co3d_cfg(tmp_path / "exp", root, extra=extra)).run(max_epochs=1)
+    torch.cuda.synchronize()
+    assert state.step == 2 and fd.launch_counts()["fused_decode_bwd"] - before == 4
+    assert state.sampler_state.loss_counts.device.type == "cuda" and int(state.sampler_state.loss_counts.sum()) >= 2
+    assert os.path.exists(tmp_path / "exp" / "eval_epoch_00000000.json")
+    res = Experiment(tiny_co3d_cfg(tmp_path / "exp", root, extra=extra + [LOOP + "eval_only=true",
+                                                                          "eval_use_ema=true"])).run()
+    assert res["protocol"] == "eval_batches" and res["n_evals"] == 2
+    assert np.isfinite(res["overall"]["psnr"])
+    with open(tmp_path / "exp" / "eval_results_epoch_00000000.json") as f:
+        assert set(json.load(f)) == set(res)

@@ -274,18 +274,25 @@ def test_lr_milestones_count_epochs(tmp_path):
     assert lrs == [lr0, lr0, lr0 * 0.5]
 
 
+_STRATIFIED_EVAL = MODEL + "raysampler_AdaptiveRaySampler_args.stratified_point_sampling_evaluation=true"
 _UNPORTED = {
-    "ema": (["ema_rate=0.5"], 2),
-    "loss_second_moment": ([MODEL + "diffusion_args.schedule_sampler_type=loss-second-moment"], 2),
-    "steps_per_dispatch": (["steps_per_dispatch=2"], 2),
+    # EMA, the loss-aware sampler and steps per dispatch are ported
+    # (tests/test_torch_train_full.py); asked for beside compact sources,
+    # they do not hide its refusal
+    "ema": (["ema_rate=0.5", "compact_sources=true"], 3),
+    "loss_second_moment": ([MODEL + "diffusion_args.schedule_sampler_type=loss-second-moment",
+                            "compact_sources=true"], 3),
+    "steps_per_dispatch": (["steps_per_dispatch=2", "compact_sources=true"], 3),
     # the CO3D provider itself is ported (tests/test_torch_co3d.py); its
     # compact-source path is not
     "co3d": ([DS + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2", "compact_sources=true"], 3),
     "compact_sources": (["compact_sources=true"], 3),
     "packed_transfer": (["packed_transfer=true"], 3),
-    "eval_only": ([LOOP + "eval_only=true"], 4),
-    "test_interval": (["disable_testing=false", LOOP + "test_interval=1"], 4),
-    "test_when_finished": (["disable_testing=false", LOOP + "test_when_finished=true"], 4),
+    # evaluation is ported (tests/test_torch_evaluation.py); stratified
+    # evaluation sampling, the rest of its item, is not
+    "eval_only": ([LOOP + "eval_only=true", _STRATIFIED_EVAL], 4),
+    "test_interval": (["disable_testing=false", LOOP + "test_interval=1", _STRATIFIED_EVAL], 4),
+    "test_when_finished": (["disable_testing=false", LOOP + "test_when_finished=true", _STRATIFIED_EVAL], 4),
     "profile": ([LOOP + "profile=true"], 6),
     "visualize": (["disable_validation=false", LOOP + "visualize_interval=1"], 6),
 }
@@ -300,17 +307,27 @@ def test_unported_features_raise(case, tmp_path):
 
 def test_ported_settings_of_those_keys_do_not_raise(tmp_path):
     """The same keys at the values the port runs: validation without
-    visualizations, test settings while testing is disabled."""
+    visualizations, test settings while testing is disabled; then the
+    features ported since: EMA, the loss-aware sampler, steps per dispatch,
+    eval_only and test evaluation."""
     Experiment(tiny_cfg(tmp_path / "exp", [
         "disable_validation=false", LOOP + "visualize_interval=0", LOOP + "test_interval=1",
         "ema_rate=0.0", "steps_per_dispatch=1", "compact_sources=false"]), device="cpu")
+    exp = Experiment(tiny_cfg(tmp_path / "exp2", [
+        "ema_rate=0.5", MODEL + "diffusion_args.schedule_sampler_type=loss-second-moment", "steps_per_dispatch=2",
+        LOOP + "eval_only=true", "disable_testing=false", LOOP + "test_interval=1",
+        LOOP + "test_when_finished=true"]), device="cpu")
+    assert (exp.ema_rate, exp.schedule_sampler, exp.steps_per_dispatch) == (0.5, "loss-second-moment", 2)
 
 
 def test_load_experiment_rejects_ema(tmp_path):
+    """use_ema on a run trained without EMA raises (the JAX package's
+    checkpoint_utils.py:47-53)."""
     from holo_diffusion_torch.utils.checkpoint_utils import load_experiment
 
-    with pytest.raises(NotImplementedError, match="item 2"):
-        load_experiment(str(tmp_path), use_ema=True, device="cpu")
+    Experiment(tiny_cfg(tmp_path / "exp"), device="cpu").run(max_epochs=1)
+    with pytest.raises(ValueError, match="trained without EMA"):
+        load_experiment(str(tmp_path / "exp"), use_ema=True, device="cpu")
 
 
 def test_package_data_ships_every_included_header():
