@@ -67,8 +67,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
            batches at 800^2 (pooling, render and host metrics timed);
            `generate_samples_main exp_dir=... use_ema=true`; a narrow
            loss-aware + EMA step card vs CPU
+  flyaround_full  the fly-around's modes and the reconstruction entry point
+           at hydrant width: `generate_samples_main config=hydrant` (10 DDIM
+           steps, 4 poses at 512^2, the four streams), the same with the
+           empty-space skip (the probe's time and occupied share, s per
+           frame with and without it, the PSNR between the two, the
+           invariance gates on the card), progressive sampling (10 DDPM
+           steps, 2 a pose); one 512^2 frame with stratified evaluation
+           sampling; the three shaded-depth methods on a 128^2 depth, each
+           against the CPU; `unet_with_no_diffusion.yaml` trained 2 steps on
+           the CO3D tree, then `visualize_reconstruction_main`: 2 sequences
+           x 4 poses at 256^2 on a fitted circle, 1 on a trefoil knot, one
+           512^2 frame through the forward
   kernels summary, the card's name and power limit, and the result line.
-Eight main paths, each with the launch counters zeroed right before it and
+Thirteen main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
 K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
 steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
@@ -76,7 +88,11 @@ no K1/K2/K3), the training loop (runs A and B: K2 twice a step, K3
 twice a step and 820 times a validation frame, no K1 or K4-K7), the
 training loop on CO3D and the whole training step (the same counts for
 their steps and frames), and evaluation (K3 twice a chunk of each
-target, nothing else).
+target, nothing else); then the fly-around's: sample mode, with the skip
+(one more K3 launch: the occupancy probe) and progressive (K3 twice a
+chunk of each frame, nothing else), the reconstruction model's training
+(K1 and K2 only) and the reconstructions (K1 twice a frame, nothing
+else).
 Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import copy
@@ -136,6 +152,15 @@ SAMPLE_COT_TOL = 1e-4
 # gradient is discontinuous there)
 UNFUSED_VS_FUSED_TOL = 2e-3
 UNFUSED_FRAME_SHARE = 1e-4
+# shaded depth, card vs CPU on the same rendered depth, per pixel: the
+# gradient method is the same float32 arithmetic; the point-cloud method's
+# normals come from another eigensolver (cuSOLVER vs LAPACK) and KNN may
+# break distance ties otherwise; the mesh method's blend weights
+# exp((z_inv - z_inv_max) / 1e-4) scale rounding of a face's depth by 1e4.
+# A pixel may also flip across a threshold (outlier mask, coverage): at most
+# SHADED_SHARE of the pixels above the tolerance
+SHADED_TOL = {"gradient": 1e-4, "pointcloud": 1e-3, "mesh": 1e-3}
+SHADED_SHARE = 0.01
 
 
 def emit(obj):
@@ -1156,9 +1181,10 @@ def train_loop_phase(here, dev, train_step_busy_ms, results):
     shutil.rmtree(out_dir, ignore_errors=True)
     reset_launch_counts_all()
     t0 = time.perf_counter()
+    # at hydrant's 512^2 (the exp_dir= path defaults to the JAX CLI's 256^2)
     paths = cli.generate_samples_main([f"exp_dir={exp_dir}", "num_samples=1", "n_flyaround_poses=1",
-                                       "use_ddim=true", "max_iter=10", f"output_directory={out_dir}",
-                                       "save_voxel_features=true"])
+                                       "render_size=[512,512]", "use_ddim=true", "max_iter=10",
+                                       f"output_directory={out_dir}", "save_voxel_features=true"])
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     serve_counts = launch_counts_all()
@@ -1576,7 +1602,7 @@ def train_full_phase(here, dev, results, co3d_s_per_step):
     reset_launch_counts_all()
     t0 = time.perf_counter()
     paths = cli.generate_samples_main([f"exp_dir={exp_dir}", "num_samples=1", "n_flyaround_poses=1",
-                                       "use_ddim=true", "max_iter=10", "use_ema=true",
+                                       "render_size=[512,512]", "use_ddim=true", "max_iter=10", "use_ema=true",
                                        f"output_directory={out_dir}"])
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -1606,6 +1632,258 @@ def train_full_phase(here, dev, results, co3d_s_per_step):
           "card_vs_cpu_launches": counts_check})
     if len(ck["saves"]) != 2 or len(ck["restores_s"]) < 3:
         raise AssertionError(f"checkpoint log: {ck}")
+
+
+def psnr(a, b):
+    """PSNR in dB between two images in [0, 1] (any array-likes)."""
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0.0 else -10.0 * math.log10(mse)
+
+
+def timed(fn):
+    """(result, seconds) of `fn()`, the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def flyaround_full_phase(here, dev, results):
+    """The fly-around's modes and the reconstruction entry point at hydrant
+    width (random weights from seed 0), on the CO3D tree the `co3d` phase
+    wrote. Sample mode through `generate_samples_main config=hydrant`: a grid
+    by 10 DDIM steps, 4 poses at 512^2 with the four streams (the main path
+    `flyaround_sample`: K3 2 x 410 chunks a frame, nothing else); the same
+    with `empty_space_skip` (`flyaround_skip`: one more K3 launch, the
+    probe's 64^3 + 1 rays of one point) with the probe's time, the occupied
+    share, s per frame with and without the skip on one grid, the PSNR
+    between the two renders and the invariance gates on the card;
+    progressive sampling (10 DDPM steps, 2 a pose, `flyaround_progressive`).
+    Reconstruction: `unet_with_no_diffusion.yaml` trained 2 steps on the tree
+    (`reconstruction_train`: K1 and K2 only), then
+    `visualize_reconstruction_main` renders 2 sequences x 4 poses at 256^2
+    along a fitted circle and 1 sequence along a trefoil knot, and one
+    512^2 frame through the forward (`reconstruction`: K1 twice a frame,
+    no K2). The three shaded-depth methods on one rendered 128^2 depth,
+    each against the CPU on the same depth; one 512^2 frame with stratified
+    evaluation sampling."""
+    import numpy as np
+    import torch
+
+    from holo_diffusion_torch import cli
+    from holo_diffusion_torch.config import load_config
+    from holo_diffusion_torch.experiment import Experiment
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.ops.occupancy import tighten_ray_bundle
+    from holo_diffusion_torch.render_eval import compute_occupancy, render_image_chunked
+    from holo_diffusion_torch.utils.checkpoint_utils import load_experiment
+    from holo_diffusion_torch.utils.flyaround import CANONICAL_CO3D_UP_AXIS, simple_360_cameras
+    from holo_diffusion_torch.utils.shaded_depth import depth_to_shaded
+    from holo_diffusion_torch.weights import init_weights
+
+    out_root = os.path.join(here, "build", "chip_smoke", "flyaround")
+    shutil.rmtree(out_root, ignore_errors=True)
+    others = ("fused_decode_bwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)
+    poses, size = 4, 512
+    frame_launches = 2 * math.ceil(size * size / (40960 // 64))
+    sample_args = ["config=hydrant", "seed=0", "num_samples=1", f"n_flyaround_poses={poses}",
+                   f"render_size=[{size},{size}]"]
+    streams = ["depths_render", "images_render", "masks_render", "shaded_depth_render"]
+    report = {}
+
+    # ---- sample mode, then the same with the skip, then progressive
+    for label, extra, steps in (("flyaround_sample", ["use_ddim=true", "max_iter=10", "save_voxel_features=true"], 10),
+                                ("flyaround_skip", ["use_ddim=true", "max_iter=10", "empty_space_skip=true"], 10),
+                                ("flyaround_progressive", ["max_iter=10", "progressive_sampling_steps_per_render=2"],
+                                 1 + 2 * (poses - 1))):
+        out_dir = os.path.join(out_root, label)
+        reset_launch_counts_all()
+        torch.cuda.reset_peak_memory_stats()
+        paths, wall = timed(lambda: cli.generate_samples_main([*sample_args, *extra, f"output_directory={out_dir}"]))
+        counts = launch_counts_all()
+        emit({"phase": "main_path", "path": label, "launches": counts})
+        k3 = poses * frame_launches + (1 if label == "flyaround_skip" else 0)
+        expect_launches(counts, label, exactly={"fused_decode_fwd_normals": k3},
+                        none=("fused_decode_fwd", *others))
+        got = sorted(paths["sample_00000"])
+        frames = [read_png_rgb(os.path.join(out_dir, "sample_00000", f"{s}_frames", f"frame_{i:05d}.png"))
+                  for s in streams for i in range(poses)]
+        if got != streams or any(f.shape != (size, size, 3) for f in frames):
+            raise AssertionError(f"{label}: streams {got}, frames {[f.shape for f in frames]}")
+        report[label] = {"s": wall, "unet_steps": steps, "poses": poses, "k3_launches": counts["fused_decode_fwd_normals"],
+                         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    results["fused_decode_fwd_normals"]["flyaround_launches"] = sum(
+        report[p]["k3_launches"] for p in ("flyaround_sample", "flyaround_skip", "flyaround_progressive"))
+
+    # ---- the skip on one grid: probe, occupied share, s per frame, PSNR, gates
+    model = cli.build_model("hydrant", render_size=(size, size))
+    init_weights(model, 0)
+    model.to(dev).eval()
+    grid = torch.from_numpy(np.load(os.path.join(out_root, "flyaround_sample", "sample_00000",
+                                                 "voxel_features.npy")))[0].to(dev)
+    cams = simple_360_cameras(poses, up=CANONICAL_CO3D_UP_AXIS)
+    with torch.no_grad():
+        compute_occupancy(model, grid)  # warm-up
+        probe_s = [timed(lambda: compute_occupancy(model, grid))[1] for _ in range(3)]
+        occ, outside = compute_occupancy(model, grid)
+        dense, dense_s = zip(*(timed(lambda c=cams[i]: render_image_chunked(model, c, grid, device=dev))
+                               for i in range(2)))
+        skip, skip_s = zip(*(timed(lambda c=cams[i]: render_image_chunked(model, c, grid, device=dev,
+                                                                           occupancy=(occ, outside)))
+                             for i in range(2)))
+        skip_psnr = [psnr(a["images_render"].cpu(), b["images_render"].cpu()) for a, b in zip(dense, skip)]
+        gates = {}
+        r = occ.shape[0]
+        for name, o in (("all_occupied", (torch.ones((r,) * 3, dtype=torch.bool, device=dev),
+                                          torch.tensor(True, device=dev))),
+                        ("no_hit", (torch.zeros((r,) * 3, dtype=torch.bool, device=dev),
+                                    torch.tensor(False, device=dev)))):
+            g = render_image_chunked(model, cams[0], grid, device=dev, occupancy=o)
+            gates[name] = {k: float((g[k] - dense[0][k]).abs().max()) for k in ("images_render", "depths_render")}
+        # the share of rays whose last sample, which the raymarcher gives the
+        # background interval, lies in positive density: dense and tightened
+        bundle = model.full_grid_rays(cams[0].to(dev), size, size)
+        last_in_density = {}
+        for name, b in (("dense", bundle), ("skip", tighten_ray_bundle(bundle, occ, model.volume_extent,
+                                                                       outside_occupied=outside))):
+            last = b.origins + b.lengths[..., -1:] * b.directions
+            last_in_density[name] = float((model.query_density(grid, last) > 0).float().mean())
+    report["skip"] = {"probe_points": r ** 3 + 1, "probe_ms": [1e3 * s for s in probe_s],
+                      "occupied_share": float(occ.float().mean()), "outside_occupied": bool(outside),
+                      "dense_s_per_frame": list(dense_s), "skip_s_per_frame": list(skip_s),
+                      "psnr_skip_vs_dense_db": skip_psnr, "gates_max_abs": gates,
+                      "last_sample_in_density_share": last_in_density}
+    if any(v["images_render"] > 1e-4 or v["depths_render"] > 1e-3 for v in gates.values()):
+        raise AssertionError(f"empty-space skip invariance gates on the card: {gates}")
+
+    # ---- stratified evaluation sampling: one 512^2 frame through the forward
+    strat = cli.build_model("hydrant", [f"{HYDRANT_MODEL}.raysampler_AdaptiveRaySampler_args."
+                                        "stratified_point_sampling_evaluation=true"], render_size=(size, size))
+    strat.load_state_dict(model.state_dict())
+    strat.to(dev).eval()
+    reset_launch_counts_all()
+    with torch.no_grad():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        strat_out, strat_s = timed(lambda: strat(cams[0].to(dev), voxel_features=grid[None], draws=gen))
+        plain_out = strat(cams[0].to(dev), voxel_features=grid[None])
+    strat_counts = launch_counts_all()
+    strat_img = strat_out["images_render"][0]
+    report["stratified_eval"] = {"s": strat_s, "psnr_vs_unstratified_db": psnr(strat_img.cpu(),
+                                                                               plain_out["images_render"][0].cpu()),
+                                 "k3_launches": strat_counts["fused_decode_fwd_normals"]}
+    if not bool(torch.isfinite(strat_img).all()) or strat_counts["fused_decode_fwd_normals"] != 4:
+        raise AssertionError(f"stratified evaluation frame: {report['stratified_eval']}")
+
+    # ---- the three shaded-depth methods on one rendered 128^2 depth
+    nonorm = cli.build_model("hydrant", [f"{HYDRANT_MODEL}.implicit_function_HoloVoxelGridImplicitFunction_args."
+                                         "render_normals=false"])
+    nonorm.load_state_dict(model.state_dict())
+    nonorm.to(dev).eval()
+    with torch.no_grad():
+        small = render_image_chunked(nonorm, cams[1], grid, image_height=128, image_width=128, device=dev)
+    depth, mask = small["depths_render"][..., 0], small["masks_render"][..., 0]
+    cam = cams[1]
+    shaded = {"mask_share": float((mask > 0.5).float().mean())}
+    for method in ("gradient", "pointcloud", "mesh"):
+        depth_to_shaded(depth, mask, cam, method=method)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        on_card, s = timed(lambda: depth_to_shaded(depth, mask, cam, method=method))
+        # above what the models and the grid hold
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        on_cpu = depth_to_shaded(depth.cpu(), mask.cpu(), cam, method=method)
+        err = (on_card.cpu() - on_cpu).abs().amax(dim=-1)
+        share = float((err > SHADED_TOL[method]).float().mean())
+        shaded[method] = {"s_per_frame": s, "peak_added_gib": peak, "max_abs_err": float(err.max()),
+                          "share_above_tol": share, "tol": SHADED_TOL[method]}
+        if not bool(torch.isfinite(on_card).all()) or share > SHADED_SHARE:
+            raise AssertionError(f"shaded depth {method}, card vs CPU: {shaded[method]}")
+    report["shaded_depth_128"] = shaded
+    del model, strat, nonorm, grid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- reconstruction: train unet_with_no_diffusion 2 steps, then visualize
+    root = os.path.join(here, "build", "chip_smoke", "co3d")
+    exp_dir = os.path.join(here, "build", "chip_smoke", "recon_exp")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    ds = "data_source_ImplicitronDataSource_args."
+    prov = ds + "dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
+    dl = ds + "data_loader_map_provider_SequenceDataLoaderMapProvider_args."
+    cfg = load_config("unet_with_no_diffusion", [
+        prov + f"dataset_root={root}", prov + "category=synthball", dl + "dataset_length_train=32",
+        f"exp_dir={exp_dir}"])
+    reset_launch_counts_all()
+    (state, _), train_s = timed(lambda: Experiment(cfg).run(max_epochs=1))
+    train_counts = launch_counts_all()
+    emit({"phase": "main_path", "path": "reconstruction_train", "launches": train_counts})
+    if state.step != 2:
+        raise AssertionError(f"reconstruction training: {state.step} steps, expected 2")
+    expect_launches(train_counts, "reconstruction training", exactly={"fused_decode_bwd": 2 * state.step},
+                    some=("fused_decode_fwd",), none=("fused_decode_fwd_normals", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    # the CLI logs each sequence's paths when it is done: its time
+    rec_log = logging.getLogger()
+    rec_level = rec_log.level
+    rec_log.setLevel(logging.INFO)
+    records = _Records()
+    rec_log.addHandler(records)
+    reset_launch_counts_all()
+    runs = {}
+    for label, extra, n_seq, n_poses, hw in (
+            ("circular_lsq_fit", ["n_eval_sequences=2"], 2, poses, 256),
+            ("trefoil_knot", ["n_eval_sequences=1", "trajectory_type=trefoil_knot"], 1, poses, 256),
+            ("forward_512", ["n_eval_sequences=1", "render_size=[512,512]", "n_flyaround_poses=1"], 1, 1, 512)):
+        out_dir = os.path.join(out_root, f"recon_{label}")
+        del records.records[:]
+        torch.cuda.reset_peak_memory_stats()
+        t0, t0_epoch = time.perf_counter(), time.time()
+        paths = cli.visualize_reconstruction_main([f"exp_dir={exp_dir}", f"n_flyaround_poses={n_poses}",
+                                                   *extra, f"output_directory={out_dir}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        done = [r.created for r in records.records
+                if isinstance(r.args, tuple) and r.args and str(r.args[0]).startswith("sequence_")]
+        # the first sequence's time includes loading the checkpoint
+        per_seq = [b - a for a, b in zip([t0_epoch, *done[:-1]], done)]
+        frames = [read_png_rgb(os.path.join(out_dir, s, f"{k}_frames", f"frame_{i:05d}.png"))
+                  for s in paths for k in streams for i in range(n_poses)]
+        if sorted(paths) != [f"sequence_{i:03d}" for i in range(n_seq)] or any(
+                sorted(p) != streams for p in paths.values()) or any(f.shape != (hw, hw, 3) for f in frames):
+            raise AssertionError(f"reconstruction {label}: {paths}")
+        runs[label] = {"s": wall, "s_per_sequence": per_seq, "sequences": n_seq, "poses": n_poses, "size": hw,
+                       "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "mask_mean": float(np.mean([f.mean() / 255 for f in frames[2 * n_poses:3 * n_poses]]))}
+    rec_log.removeHandler(records)
+    rec_log.setLevel(rec_level)
+    rec_counts = launch_counts_all()
+    emit({"phase": "main_path", "path": "reconstruction", "launches": rec_counts})
+    n_frames = sum(r["sequences"] * r["poses"] for r in runs.values())
+    expect_launches(rec_counts, "reconstruction", exactly={"fused_decode_fwd": 2 * n_frames},
+                    none=("fused_decode_fwd_normals", *others))
+    results["fused_decode_fwd"]["reconstruction_launches"] = rec_counts["fused_decode_fwd"]
+    results["fused_decode_fwd"]["reconstruction_train_launches"] = train_counts["fused_decode_fwd"]
+    results["fused_decode_bwd"]["reconstruction_train_launches"] = train_counts["fused_decode_bwd"]
+    # the 512^2 forward's own memory, above the restored state's
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    recon = load_experiment(exp_dir, render_size=(size, size))[1].model.eval()
+    v = torch.tanh(torch.randn((1, 16, 16, 16, 64), generator=torch.Generator().manual_seed(0))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        _, fwd_s = timed(lambda: recon(cams[0].to(dev), voxel_features=v))
+    fwd_gib = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    report["reconstruction"] = {"train_s": train_s, "train_steps": train_counts["fused_decode_bwd"] // 2,
+                                "k2_launches": train_counts["fused_decode_bwd"], "runs": runs,
+                                "forward_512": {"s": fwd_s, "peak_added_gib": fwd_gib}}
+    emit({"phase": "flyaround_full", **report})
 
 
 def main():
@@ -1789,6 +2067,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_full_phase(here, dev, results, co3d_s_per_step)
+
+    # ---- the fly-around's modes and the reconstruction entry point
+    gc.collect()
+    torch.cuda.empty_cache()
+    flyaround_full_phase(here, dev, results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""Train and sample CLIs of the port (counterparts of
-holo_diffusion_tpu/cli.py `train_main` and `generate_samples_main`).
+"""Train, sample and reconstruction CLIs of the port (counterparts of
+holo_diffusion_tpu/cli.py `train_main`, `generate_samples_main` and
+`visualize_reconstruction_main`).
 
 Train (resumes from the last checkpoint in exp_dir when run again):
 
@@ -21,8 +22,15 @@ weights (a seeded random init without `weights=`):
     python -m holo_diffusion_torch.cli config=hydrant weights=model.npz \\
         num_samples=2 render_size=[512,512] n_flyaround_poses=40 seed=0
 
-Sample arguments are key=value (values parse as YAML); keys with a dot are
-dotted config overrides. Both run on CUDA unless given the CPU
+Render few-view reconstructions of a trained non-diffusion exp_dir (such as
+`unet_with_no_diffusion.yaml` trains) along trajectories fitted to its
+first validation scenes:
+
+    python -m holo_diffusion_torch.cli visualize_reconstruction exp_dir=./recon \\
+        n_eval_sequences=2 trajectory_type=circular_lsq_fit [empty_space_skip=true]
+
+Sample and reconstruction arguments are key=value (values parse as YAML);
+keys with a dot are dotted config overrides. All run on CUDA unless given the CPU
 (`--device cpu`, `device=cpu`); float32 stays full float32 (TF32 off).
 """
 from __future__ import annotations
@@ -42,6 +50,7 @@ from .experiment import Experiment
 from .models.holo_model import HoloDiffusionModel
 from .utils.checkpoint_utils import load_experiment
 from .utils.flyaround import render_flyaround
+from .sampling import sample_random_voxel_features
 from .weights import init_weights, load_weights
 
 
@@ -76,8 +85,9 @@ def build_model(
     return HoloDiffusionModel(**args)
 
 
-def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, str]]:
-    logging.basicConfig(level=logging.INFO)
+def _key_values(argv: Optional[List[str]]):
+    """key=value arguments (values parse as YAML) -> (options, the dotted
+    config overrides among them)."""
     opts, overrides = {}, []
     for kv in sys.argv[1:] if argv is None else argv:
         k, sep, v = kv.partition("=")
@@ -87,18 +97,29 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
             overrides.append(kv)
         else:
             opts[k] = yaml.safe_load(v)
+    return opts, overrides
 
+
+def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, str]]:
+    """Sample grids and render a fly-around of each; returns {sample name:
+    {stream: video path}}. With exp_dir= the options and defaults are the
+    JAX CLI's (3 samples at 256^2); config=/weights= keeps the port's own
+    (1 sample at the config's render size)."""
+    logging.basicConfig(level=logging.INFO)
+    opts, overrides = _key_values(argv)
     exp_dir = opts.pop("exp_dir", None)
     config = opts.pop("config", None)
     weights = opts.pop("weights", None)
     if exp_dir is not None and (config is not None or weights is not None):
         raise ValueError("give exp_dir= or config=/weights=, not both")
-    num_samples = int(opts.pop("num_samples", 1))
+    num_samples = int(opts.pop("num_samples", 1 if exp_dir is None else 3))
     output_directory = opts.pop("output_directory",
                                 "samples" if exp_dir is None else os.path.join(exp_dir, "samples"))
-    render_size = opts.pop("render_size", None)
+    render_size = opts.pop("render_size", None if exp_dir is None else [256, 256])
     n_flyaround_poses = int(opts.pop("n_flyaround_poses", 40))
     trajectory_distance = float(opts.pop("trajectory_distance", 15.0))
+    # > 0: render the DDPM chain while it denoises, this many steps a pose
+    progressive = int(opts.pop("progressive_sampling_steps_per_render", -1))
     seed = int(opts.pop("seed", 0))
     use_ddim = bool(opts.pop("use_ddim", False))
     max_iter = opts.pop("max_iter", None)
@@ -106,6 +127,11 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
     save_voxel_features = bool(opts.pop("save_voxel_features", False))
     # sample through the EMA of the parameters (a run trained with ema_rate > 0)
     use_ema = bool(opts.pop("use_ema", False))
+    # > 1: that many grids in one sampling call, then rendered one at a
+    # time (the JAX CLI's batch over a mesh of one device)
+    sample_batch_size = int(opts.pop("sample_batch_size", 0))
+    # evaluation-only occupancy skip for the fly-around renders
+    empty_space_skip = bool(opts.pop("empty_space_skip", False))
     device = resolve_device(opts.pop("device", None))
     if opts:
         raise ValueError(f"unknown args: {list(opts)}")
@@ -121,22 +147,91 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
             load_weights(model, weights)
         else:
             init_weights(model, seed)
+    if not (model.net_3d_enabled and model.diffusion_enabled):
+        raise ValueError("generate_samples needs a diffusion model (generate_samples.py:90-92 in the reference)")
     model.to(device).eval()
+
+    def generator(s):
+        return torch.Generator(device=device).manual_seed(s)
+
+    grids = {}
+    if sample_batch_size > 1 and progressive <= 0:
+        for start in range(0, num_samples, sample_batch_size):
+            # a whole batch even at the tail, as the JAX CLI pads it
+            batch = sample_random_voxel_features(
+                model, generator(seed + start), max_iter=max_iter, use_ddim=use_ddim,
+                n_samples=sample_batch_size, device=device)
+            for j in range(min(sample_batch_size, num_samples - start)):
+                grids[start + j] = batch[j:j + 1]
 
     results = {}
     for i in range(num_samples):
         name = f"sample_{i:05d}"
-        gen = torch.Generator(device=device).manual_seed(seed + i)
         results[name] = render_flyaround(
             model,
             os.path.join(output_directory, name),
             n_flyaround_poses=n_flyaround_poses,
             trajectory_distance=trajectory_distance,
-            generator=gen,
+            generator=generator(seed + i),
+            progressive_sampling_steps_per_render=progressive,
             video_fps=video_fps,
             save_voxel_features=save_voxel_features,
+            voxel_features=grids.get(i),
             sample_use_ddim=use_ddim,
             sample_max_iter=max_iter,
+            empty_space_skip=empty_space_skip,
+            device=device,
+        )
+        logging.info("%s: %s", name, results[name])
+    return results
+
+
+def visualize_reconstruction_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, str]]:
+    """Render few-view reconstructions of a trained non-diffusion exp_dir,
+    one for each of the first `n_eval_sequences` scenes (val, else train),
+    along `trajectory_type` (fitted to the scene's cameras, or simple_360);
+    returns {sequence name: {stream: video path}}. Options and defaults are
+    the JAX CLI's (cli.py:173-235)."""
+    logging.basicConfig(level=logging.INFO)
+    opts, overrides = _key_values(argv)
+    exp_dir = opts.pop("exp_dir")
+    output_directory = opts.pop("output_directory", os.path.join(exp_dir, "reconstructions"))
+    render_size = opts.pop("render_size", [256, 256])
+    n_eval_sequences = int(opts.pop("n_eval_sequences", 2))
+    n_source_views = int(opts.pop("n_source_views", 9))
+    n_flyaround_poses = int(opts.pop("n_flyaround_poses", 40))
+    trajectory_type = opts.pop("trajectory_type", "circular_lsq_fit")
+    seed = int(opts.pop("seed", 0))
+    # render through the EMA of the parameters (a run trained with ema_rate > 0)
+    use_ema = bool(opts.pop("use_ema", False))
+    # evaluation-only occupancy skip for the fly-around renders
+    empty_space_skip = bool(opts.pop("empty_space_skip", False))
+    device = resolve_device(opts.pop("device", None))
+    if opts:
+        raise ValueError(f"unknown args: {list(opts)}")
+
+    set_full_precision()
+    exp, state = load_experiment(exp_dir, overrides, render_size, use_ema=use_ema, device=device)
+    model = state.model
+    if model.diffusion_enabled:
+        raise ValueError("visualize_reconstruction needs a non-diffusion model "
+                         "(visualize_reconstruction.py:95-99 in the reference)")
+    model.to(device).eval()
+
+    eval_ds = exp.data.val if len(exp.data.val) else exp.data.train
+    results = {}
+    for si, scene in enumerate(eval_ds.first_scenes(n_eval_sequences)):
+        name = f"sequence_{si:03d}"
+        results[name] = render_flyaround(
+            model,
+            os.path.join(output_directory, name),
+            scene=scene,
+            sample_mode=False,
+            n_source_views=n_source_views,
+            n_flyaround_poses=n_flyaround_poses,
+            trajectory_type=trajectory_type,
+            seed=seed,
+            empty_space_skip=empty_space_skip,
             device=device,
         )
         logging.info("%s: %s", name, results[name])
@@ -146,5 +241,7 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
 if __name__ == "__main__":
     if sys.argv[1:2] == ["train"]:
         train_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["visualize_reconstruction"]:
+        visualize_reconstruction_main(sys.argv[2:])
     else:
         generate_samples_main()

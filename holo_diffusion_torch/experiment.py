@@ -266,10 +266,13 @@ class Experiment:
         render size. Returns the last batch's outputs."""
         model = state.model
         use_chunked = (model.chunk_size_grid or 0) > 0 and model.sampling_mode_evaluation == "full_grid"
+        # draws of the evaluation sampling modes that draw (mask_sample,
+        # stratified points), apart from the training draws
+        generator = torch.Generator(device=self.device).manual_seed(self.seed + epoch)
         out = None
         for batch in epoch_loader(self.data.val, self.batch_size, self.n_batches_val, self.seed + epoch):
             batch = self._to_device(batch)
-            out = self._eval_batch_chunked(state, batch) if use_chunked else eval_step(state, batch)
+            out = self._eval_batch_chunked(state, batch) if use_chunked else eval_step(state, batch, generator)
             stats.update(_host_floats({k: v for k, v in out.items() if v.ndim == 0}), "val")
         return out
 

@@ -90,13 +90,6 @@ class HoloDiffusionModel(nn.Module):
         for mode in (sampling_mode_training, sampling_mode_evaluation):
             if mode not in ("mask_sample", "full_grid"):
                 raise ValueError(f"unknown sampling mode {mode!r}")
-        if sampling_mode_evaluation != "full_grid":
-            raise NotImplementedError(
-                f"sampling_mode_evaluation={sampling_mode_evaluation!r}: only full_grid is ported "
-                "(ROADMAP.md §1 item 4)"
-            )
-        if stratified_point_sampling_evaluation:
-            raise NotImplementedError("stratified evaluation sampling is not ported yet (ROADMAP.md §1 item 4)")
         self.resol = resol
         self.volume_extent = volume_extent
         self.feature_size = feature_size
@@ -256,9 +249,10 @@ class HoloDiffusionModel(nn.Module):
         draws: Any = None,
     ) -> RendererOutput:
         """Multi-pass EA render of a prepared ray bundle (the chunkable inner
-        renderer); training adds density noise and stratified refinement,
+        renderer); training adds density noise, and a stratified mode
+        (training, or evaluation given `draws`) a stratified refinement,
         with `draws` as `forward` takes them."""
-        draws = Draws.of(draws) if training else None
+        draws = Draws.of(draws) if training or draws is not None else None
 
         def implicit_fn(points, directions, pass_number):
             return self.implicit_function(voxel_grid, points, directions)
@@ -303,31 +297,35 @@ class HoloDiffusionModel(nn.Module):
         mask_crop: Optional[torch.Tensor] = None,
     ) -> Tuple[RendererOutput, RayBundle]:
         """Ray sampling + multi-pass render of one grid (r, r, r, C) into
-        `cameras`: mask-sampled rays (`ray_pixel_u`, and `ray_length_u` when
-        stratified) or the full pixel grid."""
-        if not training:
-            bundle = self.full_grid_rays(cameras)
-        else:
+        `cameras`, by the sampling mode of training or evaluation:
+        mask-sampled rays (`ray_pixel_u`) or the full pixel grid, with
+        stratified coarse lengths (`ray_length_u`) where the mode is
+        stratified. Training draws from `draws`; evaluation only where its
+        mode asks for draws and `draws` is given, as the JAX package draws
+        from an evaluation key (mask sampling needs one; without it a
+        stratified full-grid render is deterministic)."""
+        mode = self.sampling_mode_training if training else self.sampling_mode_evaluation
+        stratified = (self.stratified_point_sampling_training if training
+                      else self.stratified_point_sampling_evaluation)
+        n_pts = self.n_pts_per_ray_training if training else self.n_pts_per_ray_evaluation
+        if training or mode == "mask_sample" or draws is not None:
             draws = Draws.of(draws)
-            B, dev, n_pts = cameras.batch_size, voxel_grid.device, self.n_pts_per_ray_training
-            if self.sampling_mode_training == "mask_sample":
-                if mask_crop is None:
-                    raise ValueError("mask_sample training needs mask_crop")
-                n_rays = self.n_rays_per_image
-            else:
-                n_rays = self.render_image_height * self.render_image_width
-            u_len = None
-            if self.stratified_point_sampling_training:
-                u_len = draws.uniform("ray_length_u", (B, n_rays, n_pts), dev)
-            if self.sampling_mode_training == "mask_sample":
-                mask = mask_crop[..., 0] if mask_crop.ndim == 4 else mask_crop
-                bundle = sample_rays_from_mask(
-                    cameras, mask, n_pts, draws.uniform("ray_pixel_u", (B, n_rays), dev), u_len,
-                    self.scene_center, self.scene_extent)
-            else:
-                bundle = sample_rays_full_grid(
-                    cameras, self.render_image_height, self.render_image_width, n_pts,
-                    self.scene_center, self.scene_extent, u_len)
+        B, dev = cameras.batch_size, voxel_grid.device
+        H, W = self.render_image_height, self.render_image_width
+        n_rays = self.n_rays_per_image if mode == "mask_sample" else H * W
+        u_len = None
+        if stratified and draws is not None:
+            u_len = draws.uniform("ray_length_u", (B, n_rays, n_pts), dev)
+        if mode == "mask_sample":
+            if mask_crop is None:
+                raise ValueError("mask_sample ray sampling needs mask_crop")
+            mask = mask_crop[..., 0] if mask_crop.ndim == 4 else mask_crop
+            bundle = sample_rays_from_mask(
+                cameras, mask, n_pts, draws.uniform("ray_pixel_u", (B, n_rays), dev), u_len,
+                self.scene_center, self.scene_extent)
+        else:
+            bundle = sample_rays_full_grid(
+                cameras, H, W, n_pts, self.scene_center, self.scene_extent, u_len)
         return self.render_rays(voxel_grid, bundle, training, draws), bundle
 
     def forward(
@@ -348,12 +346,13 @@ class HoloDiffusionModel(nn.Module):
         n_targets are render targets, the rest pooling sources. Without
         images, `voxel_features` (1, r, r, r, C) is rendered (serving).
         Training needs `draws`: a `torch.Generator`, a mapping of injected
-        draws, or a `Draws`; `timesteps` (2,) replaces the uniform draw of
-        the two diffusion passes. Returns the JAX package's preds: renders, ray
-        bundle, `loss_*` metrics, `images/depths/masks[/normals]_render` and
-        the weighted `objective`.
+        draws, or a `Draws`; so does evaluation with `mask_sample`, and
+        stratified evaluation stratifies only given them. `timesteps` (2,)
+        replaces the uniform draw of the two diffusion passes. Returns the
+        JAX package's preds: renders, ray bundle, `loss_*` metrics,
+        `images/depths/masks[/normals]_render` and the weighted `objective`.
         """
-        draws = Draws.of(draws) if training else None
+        draws = Draws.of(draws) if training or draws is not None else None
         image_rgb, fg_probability, depth_map = preprocess_input(
             image_rgb, fg_probability, depth_map, self.mask_images, self.mask_depths,
             self.mask_threshold, self.bg_color)
@@ -395,7 +394,7 @@ class HoloDiffusionModel(nn.Module):
             rendered, ray_bundle.xys, targets(image_rgb), targets(depth_map), targets(fg_probability)))
 
         H, W = self.render_image_height, self.render_image_width
-        if training and self.sampling_mode_training == "mask_sample":
+        if (self.sampling_mode_training if training else self.sampling_mode_evaluation) == "mask_sample":
             if self.output_rasterized_mc:
                 preds["images_render"], preds["depths_render"], preds["masks_render"] = (
                     rasterize_sparse_rays(ray_bundle.xys, rendered.features[..., :3], (H, W),

@@ -87,11 +87,12 @@ def multipass_ea_render(
     draws: Optional[Draws] = None,
 ) -> RendererOutput:
     """Coarse -> (importance refine -> fine)^(num_passes-1) with the same
-    implicit function each pass. Evaluation refines deterministically and
-    adds no noise. Training (`draws` required) refines with the uniforms
-    `refine_u_{pass}` when stratified and adds `density_noise_std_train` x
-    `density_noise_{pass}` to the densities, as the JAX package draws them
-    (refine, then noise, per pass). The refinement sees detached weights.
+    implicit function each pass. Given `draws` (always in training), a
+    stratified render refines with the uniforms `refine_u_{pass}`, else the
+    refinement is deterministic; training (`draws` required) also adds
+    `density_noise_std_train` x `density_noise_{pass}` to the densities, as
+    the JAX package draws them (refine, then noise, per pass). The
+    refinement sees detached weights.
 
     implicit_fn(points (B,N,P,3), directions (B,N,3), pass_number)
         -> (densities (B,N,P,1), features (B,N,P,C), aux dict)
@@ -105,7 +106,7 @@ def multipass_ea_render(
     for pass_number in range(num_passes):
         if pass_number > 0:
             u = None
-            if training and stratified_sampling_coarse:
+            if draws is not None and stratified_sampling_coarse:
                 u = draws.uniform(f"refine_u_{pass_number}", (B, N, n_pts_per_ray_fine), lengths.device)
             lengths = importance_sample_lengths(
                 lengths, output.weights.detach(), n_pts_per_ray_fine, u,

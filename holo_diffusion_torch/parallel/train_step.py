@@ -192,13 +192,15 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model: HoloDiffusionModel) -> Callable[[TrainState, FrameData], Dict[str, torch.Tensor]]:
-    """eval_step(state, batch) -> the tracked scalar metrics and
+def make_eval_step(model: HoloDiffusionModel) -> Callable[..., Dict[str, torch.Tensor]]:
+    """eval_step(state, batch, draws=None) -> the tracked scalar metrics and
     `images/depths/masks_render` of the EVALUATION forward (frame 0 the
-    target, full-grid render), without autograd. It draws nothing random."""
+    target), without autograd. `draws` (a generator or injected values) feed
+    the evaluation sampling modes that draw: `mask_sample` (which needs
+    them) and stratified points; the full-grid default draws nothing."""
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch: FrameData) -> Dict[str, torch.Tensor]:
+    def eval_step(state: TrainState, batch: FrameData, draws: Any = None) -> Dict[str, torch.Tensor]:
         if state.model is not model:
             raise ValueError("the state holds another model than this step's")
         preds = model(
@@ -208,6 +210,7 @@ def make_eval_step(model: HoloDiffusionModel) -> Callable[[TrainState, FrameData
             mask_crop=batch.mask_crop,
             depth_map=batch.depth_map,
             training=False,
+            draws=draws,
         )
         return {
             **scalar_metrics(preds),

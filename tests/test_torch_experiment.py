@@ -178,7 +178,7 @@ def test_train_cli_then_sample_from_its_exp_dir(tmp_path):
         "render_size=[16,16]", "use_ddim=true", "max_iter=2", f"output_directory={out}",
         "save_voxel_features=true"])
     assert set(results) == {"sample_00000"}
-    assert set(results["sample_00000"]) == {"images_render", "masks_render", "depths_render"}
+    assert set(results["sample_00000"]) == {"images_render", "masks_render", "depths_render", "shaded_depth_render"}
     grid = np.load(os.path.join(out, "sample_00000", "voxel_features.npy"))
     assert grid.shape == (1, 4, 4, 4, 32) and np.isfinite(grid).all() and np.abs(grid).max() <= 1.0
     with pytest.raises(ValueError, match="not both"):

@@ -838,3 +838,108 @@ def test_full_experiment_and_eval_only_on_the_card(tmp_path):
     assert np.isfinite(res["overall"]["psnr"])
     with open(tmp_path / "exp" / "eval_results_epoch_00000000.json") as f:
         assert set(json.load(f)) == set(res)
+
+
+def _flyaround_model(render_normals=True):
+    """The hydrant decoder (C 64, hidden 256: the fused kernels) on a 16^3
+    grid, serving only, seeded random weights."""
+    from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
+    from holo_diffusion_torch.weights import init_weights
+
+    return init_weights(HoloDiffusionModel(
+        resol=16, volume_extent=8.0, feature_size=64, render_normals=render_normals, chunk_size_grid=40960,
+        render_image_height=48, render_image_width=48, net_3d_enabled=False, diffusion_enabled=False,
+        view_pooler_enabled=False), seed=0).eval()
+
+
+def _flyaround_grid():
+    return torch.tanh(2.0 * torch.randn((16, 16, 16, 64), generator=torch.Generator().manual_seed(49)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True], ids=["K1", "K3"])
+def test_occupancy_probe_launches_the_fused_kernel_at_one_point_a_ray(normals):
+    """`compute_occupancy` decodes 64^3 + 1 rays of one point each in one
+    fused-decode launch; its raw densities are the CPU's within 1e-4 and
+    its mask equals the CPU's where no raw density lies within 1e-4 of the
+    threshold."""
+    from holo_diffusion_torch.ops.voxel import voxel_coord_grid
+    from holo_diffusion_torch.render_eval import compute_occupancy
+
+    dev = _device()
+    model, grid = _flyaround_model(normals), _flyaround_grid()
+    name = fd.ENTRY_POINTS[int(normals)]
+    pts = torch.cat([voxel_coord_grid(64, 8.0).reshape(-1, 3), torch.full((1, 3), 1e6)])
+    with torch.no_grad():
+        before = fd.launch_counts()
+        occ, outside = compute_occupancy(model.to(dev), grid.to(dev))
+        raw = model.query_density(grid.to(dev), pts.to(dev))
+        torch.cuda.synchronize()
+        after = fd.launch_counts()
+        raw_cpu = model.cpu().query_density(grid, pts)
+        occ_cpu, outside_cpu = compute_occupancy(model, grid)
+    assert {k: after[k] - before[k] for k in after} == {k: 2 * (k == name) for k in after}
+    assert occ.shape == (64, 64, 64) and occ.device.type == "cuda"
+    torch.testing.assert_close(raw.cpu(), raw_cpu, rtol=0, atol=1e-4)
+    near = (raw_cpu[:-1].abs() <= 1e-4).float().reshape(1, 1, 64, 64, 64)
+    clear = torch.nn.functional.max_pool3d(near, 3, 1, 1)[0, 0] == 0
+    assert torch.equal(occ.cpu()[clear], occ_cpu[clear]) and bool(outside) == bool(outside_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True], ids=["gradient", "from_normals"])
+def test_flyaround_streams_on_the_card_match_the_cpu(normals, tmp_path, monkeypatch):
+    """Every stream of a 2-pose fly-around of one grid, the shaded depth
+    included (from the rendered normals, or by the gradient method), on
+    the card and on the CPU: within the render tolerance 2e-3 (a pixel of
+    the gradient method's outlier mask may flip: at most 1 % of them)."""
+    from holo_diffusion_torch.utils import flyaround as tfa
+
+    dev = _device()
+    model, grid = _flyaround_model(normals), _flyaround_grid()[None]
+    frames = {}
+
+    class Capture:
+        def __init__(self, out_path, fps=20):
+            self.key = (str(dev_now), out_path.rsplit("/", 1)[-1][:-4])
+
+        def write_frame(self, frame):
+            frames.setdefault(self.key, []).append(torch.from_numpy(np.array(frame, np.float32)))
+
+        def get_video(self):
+            return self.key[1]
+
+    monkeypatch.setattr(tfa, "VideoWriter", Capture)
+    for dev_now in (dev, torch.device("cpu")):
+        paths = tfa.render_flyaround(model.to(dev_now), str(tmp_path / dev_now.type), n_flyaround_poses=2,
+                                     voxel_features=grid.to(dev_now), device=dev_now)
+    assert sorted(paths) == ["depths_render", "images_render", "masks_render", "shaded_depth_render"]
+    for stream in paths:
+        for a, b in zip(frames[(str(dev), stream)], frames[("cpu", stream)]):
+            assert bool(torch.isfinite(a).all())
+            share = float(((a - b).abs() > 2e-3).float().mean())
+            assert share <= (0.01 if stream == "shaded_depth_render" else 0.0), (stream, share)
+
+
+@pytest.mark.cuda
+def test_empty_space_skip_invariance_gates_on_the_card():
+    """An all-occupied mask (outside too) and a no-hit mask reproduce the
+    card's dense render (images 1e-4, depths 1e-3, as on the CPU); the
+    probed mask renders within 2e-3 of the CPU's probed render."""
+    from holo_diffusion_torch.render_eval import render_image_chunked
+    from holo_diffusion_torch.utils.flyaround import simple_360_cameras
+
+    dev = _device()
+    model, grid = _flyaround_model().to(dev), _flyaround_grid().to(dev)
+    cam = simple_360_cameras(1, dist=12.0)
+    with torch.no_grad():
+        dense = render_image_chunked(model, cam, grid, device=dev)
+        for occ in ((torch.ones((64,) * 3, dtype=torch.bool, device=dev), torch.tensor(True, device=dev)),
+                    (torch.zeros((64,) * 3, dtype=torch.bool, device=dev), torch.tensor(False, device=dev))):
+            skip = render_image_chunked(model, cam, grid, device=dev, occupancy=occ)
+            torch.testing.assert_close(skip["images_render"], dense["images_render"], rtol=0, atol=1e-4)
+            torch.testing.assert_close(skip["depths_render"], dense["depths_render"], rtol=0, atol=1e-3)
+        probed = render_image_chunked(model, cam, grid, device=dev, empty_space_skip=True)
+        cpu = render_image_chunked(model.cpu(), cam, grid.cpu(), device="cpu", empty_space_skip=True)
+    for k in cpu:
+        torch.testing.assert_close(probed[k].cpu(), cpu[k], rtol=0, atol=2e-3, msg=k)

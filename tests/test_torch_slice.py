@@ -111,7 +111,7 @@ def test_sample_then_render_matches_jax(models, tmp_path):
 
     paths = render_flyaround(tm, str(tmp_path), n_flyaround_poses=2, voxel_features=v_t,
                              save_voxel_features=True, device="cpu")
-    assert sorted(paths) == ["depths_render", "images_render", "masks_render"]
+    assert sorted(paths) == ["depths_render", "images_render", "masks_render", "shaded_depth_render"]
     assert len(os.listdir(paths["images_render"])) == 2 or paths["images_render"].endswith(".mp4")
     assert os.path.exists(tmp_path / "voxel_features.npy")
     # every launch path above took the plain version: no kernel on the CPU
@@ -143,6 +143,7 @@ def test_entry_points_raise_without_cuda(models, tmp_path, monkeypatch):
         lambda: cli.train_main(["--config-name", "synthetic_debug.yaml", "--max-epochs", "1",
                                 f"exp_dir={tmp_path}/exp"]),
         lambda: cli.generate_samples_main([f"exp_dir={tmp_path}/exp"]),
+        lambda: cli.visualize_reconstruction_main([f"exp_dir={tmp_path}/exp"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -288,11 +288,14 @@ _UNPORTED = {
     "co3d": ([DS + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2", "compact_sources=true"], 3),
     "compact_sources": (["compact_sources=true"], 3),
     "packed_transfer": (["packed_transfer=true"], 3),
-    # evaluation is ported (tests/test_torch_evaluation.py); stratified
-    # evaluation sampling, the rest of its item, is not
-    "eval_only": ([LOOP + "eval_only=true", _STRATIFIED_EVAL], 4),
-    "test_interval": (["disable_testing=false", LOOP + "test_interval=1", _STRATIFIED_EVAL], 4),
-    "test_when_finished": (["disable_testing=false", LOOP + "test_when_finished=true", _STRATIFIED_EVAL], 4),
+    # evaluation and its stratified sampling are ported
+    # (tests/test_torch_evaluation.py, tests/test_torch_eval_sampling.py);
+    # asked for beside compact sources, they do not hide its refusal
+    "eval_only": ([LOOP + "eval_only=true", _STRATIFIED_EVAL, "compact_sources=true"], 3),
+    "test_interval": (["disable_testing=false", LOOP + "test_interval=1", _STRATIFIED_EVAL,
+                       "compact_sources=true"], 3),
+    "test_when_finished": (["disable_testing=false", LOOP + "test_when_finished=true", _STRATIFIED_EVAL,
+                            "compact_sources=true"], 3),
     "profile": ([LOOP + "profile=true"], 6),
     "visualize": (["disable_validation=false", LOOP + "visualize_interval=1"], 6),
 }
@@ -309,14 +312,14 @@ def test_ported_settings_of_those_keys_do_not_raise(tmp_path):
     """The same keys at the values the port runs: validation without
     visualizations, test settings while testing is disabled; then the
     features ported since: EMA, the loss-aware sampler, steps per dispatch,
-    eval_only and test evaluation."""
+    eval_only, test evaluation and stratified evaluation sampling."""
     Experiment(tiny_cfg(tmp_path / "exp", [
         "disable_validation=false", LOOP + "visualize_interval=0", LOOP + "test_interval=1",
         "ema_rate=0.0", "steps_per_dispatch=1", "compact_sources=false"]), device="cpu")
     exp = Experiment(tiny_cfg(tmp_path / "exp2", [
         "ema_rate=0.5", MODEL + "diffusion_args.schedule_sampler_type=loss-second-moment", "steps_per_dispatch=2",
         LOOP + "eval_only=true", "disable_testing=false", LOOP + "test_interval=1",
-        LOOP + "test_when_finished=true"]), device="cpu")
+        LOOP + "test_when_finished=true", _STRATIFIED_EVAL]), device="cpu")
     assert (exp.ema_rate, exp.schedule_sampler, exp.steps_per_dispatch) == (0.5, "loss-second-moment", 2)
 
 
