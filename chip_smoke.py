@@ -79,8 +79,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
            the CO3D tree, then `visualize_reconstruction_main`: 2 sequences
            x 4 poses at 256^2 on a fitted circle, 1 on a trefoil knot, one
            512^2 frame through the forward
+  quality  sample quality and the loop's outputs on train_full's EMA
+           checkpoint: `evaluate_samples_main` (2 samples x 4 poses, 10
+           DDPM steps, 512^2) with the extractors random_inception,
+           random_vgg, and inception / vgg reading random weights in the
+           published layouts, timed by phase; Inception, VGG and LPIPS on
+           the card against the CPU, and their ms per image against a
+           float32 bound from their conv FLOPs; `run_eval_only` with
+           `lpips_vgg_weights_path` over the tree's eval batches; then
+           `Experiment.run` on synthetic scenes, 1 epoch of 2 steps with
+           validation, visualizations, the denoising video (1000 DDPM
+           steps, a chunked 512^2 frame every 50) and the profiler, and the
+           files it leaves (train_stats.pdf needs matplotlib)
   kernels summary, the card's name and power limit, and the result line.
-Thirteen main paths, each with the launch counters zeroed right before it and
+Nineteen main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
 K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
 steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
@@ -92,7 +104,11 @@ target, nothing else); then the fly-around's: sample mode, with the skip
 (one more K3 launch: the occupancy probe) and progressive (K3 twice a
 chunk of each frame, nothing else), the reconstruction model's training
 (K1 and K2 only) and the reconstructions (K1 twice a frame, nothing
-else).
+else); then sample quality's: the four extractors' sample evaluations
+(K3 twice a one-forward frame, nothing else), evaluation with LPIPS (K3
+twice a chunk of each target) and the loop with visualizations (K2 twice a
+step, K3 twice a step and twice a chunk of each validation and video
+frame).
 Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import copy
@@ -161,6 +177,11 @@ UNFUSED_FRAME_SHARE = 1e-4
 # SHADED_SHARE of the pixels above the tolerance
 SHADED_TOL = {"gradient": 1e-4, "pointcloud": 1e-3, "mesh": 1e-3}
 SHADED_SHARE = 0.01
+# the extractors and LPIPS, card vs CPU on the same weights and inputs, full
+# float32: Inception pool3 absolute and relative (the JAX package's own
+# tolerance for this 94-conv net, tests/test_inception.py:242); VGG relu5_3
+# pooled, of the features' scale; LPIPS of an 800^2 pair, relative
+QUALITY_TOL = {"inception": 2e-3, "vgg": 1e-3, "lpips": 1e-4}
 
 
 def emit(obj):
@@ -1886,6 +1907,234 @@ def flyaround_full_phase(here, dev, results):
     emit({"phase": "flyaround_full", **report})
 
 
+def conv2d_flops(model, fn):
+    """2 x multiply-adds of `model`'s 2D convolutions in one call of `fn`,
+    counted from the shapes they see (forward hooks); as for the UNet, the
+    convolutions are nearly all of the extractors' arithmetic."""
+    import torch
+
+    flops = []
+
+    def hook(mod, inputs, out):
+        o, i, kh, kw = mod.weight.shape
+        flops.append(2 * out.numel() * i * kh * kw)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        fn()
+    for h in handles:
+        h.remove()
+    return sum(flops)
+
+
+def quality_phase(here, dev, results):
+    """Sample quality and the loop's outputs at hydrant width. On
+    `train_full`'s EMA checkpoint (build/chip_smoke/full_exp, the CO3D tree
+    under build/chip_smoke/co3d): `evaluate_samples_main num_samples=2
+    poses_per_sample=4 max_iter=10 use_ema=true` at 512^2 with each of the
+    four extractors, `inception` and `vgg` reading random torchvision- /
+    pytorch-fid-layout weights this phase writes (the main path
+    `sample_eval_<extractor>`: K3 twice a frame, 16 in all, nothing else);
+    the extractors and LPIPS on the card against the CPU, and their ms per
+    image against a float32 bound from their conv FLOPs; `run_eval_only`
+    with `lpips_vgg_weights_path` over the tree's eval batches (`lpips_eval`:
+    K3 twice a chunk of each 800^2 target). Then `Experiment.run` on
+    synthetic scenes, 1 epoch of 2 steps with validation, visualizations,
+    the denoising video (1000 DDPM steps, a 512^2 chunked frame every 50)
+    and the profiler on (`vis_loop`: K2 twice a step, K3 twice a step and
+    820 times a validation or video frame), and the files it leaves."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from holo_diffusion_torch import cli
+    from holo_diffusion_torch.config import load_config
+    from holo_diffusion_torch.evaluation_fid import inception_pooled_feature_fn, vgg_pooled_feature_fn
+    from holo_diffusion_torch.experiment import Experiment
+    from holo_diffusion_torch.models.inception import FIDInceptionV3, random_inception
+    from holo_diffusion_torch.models.lpips import load_lpips_model, make_lpips_fn, random_vgg_features
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.utils.vis import write_dashboard_html
+
+    full_exp = os.path.join(here, "build", "chip_smoke", "full_exp")
+    out = os.path.join(here, "build", "chip_smoke", "quality")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    others = ("fused_decode_fwd", "fused_decode_bwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)
+
+    # ---- random weights in the published files' layouts
+    inc_path = os.path.join(out, "pt_inception_random.pth")
+    vgg_path = os.path.join(out, "vgg16_random.pth")
+    torch.save(random_inception(1).state_dict(), inc_path)
+    torch.save({f"features.{k}": v for k, v in random_vgg_features(1).state_dict().items()}, vgg_path)
+
+    # ---- FID/KID of 2 samples x 4 poses through the CLI, each extractor
+    runs = {}
+    for extractor in ("random_inception", "random_vgg", "inception", "vgg"):
+        args = [f"exp_dir={full_exp}", "num_samples=2", "poses_per_sample=4", "max_iter=10", "use_ema=true",
+                f"extractor={extractor}", f"dump_path={os.path.join(out, extractor + '.json')}"]
+        if extractor in ("inception", "vgg"):
+            args.append(f"weights_path={inc_path if extractor == 'inception' else vgg_path}")
+        reset_launch_counts_all()
+        timings = {}
+        res, wall = timed(lambda: cli.evaluate_samples_main(args, timings=timings))
+        counts = launch_counts_all()
+        emit({"phase": "main_path", "path": f"sample_eval_{extractor}", "launches": counts})
+        expect_launches(counts, f"sample evaluation ({extractor})",
+                        exactly={"fused_decode_fwd_normals": 2 * 2 * 4}, none=others)
+        scores = [res[f"{extractor}_{k}"] for k in ("fid", "kid_mean", "kid_std")]
+        if (not all(math.isfinite(x) for x in scores) or res["n_generated"] != 8
+                or res["comparable_to_inception_fid"] is not (extractor == "inception")):
+            raise AssertionError(f"sample evaluation ({extractor}): {res}")
+        runs[extractor] = {"s": wall, **timings, "fid": scores[0], "kid_mean": scores[1], "kid_std": scores[2],
+                           "n_generated": res["n_generated"], "n_real": res["n_real"],
+                           "k3_launches": counts["fused_decode_fwd_normals"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["fused_decode_fwd_normals"]["sample_eval_launches"] = runs["inception"]["k3_launches"]
+    emit({"phase": "quality", "item": "sample_eval", "samples": 2, "poses": 4, "ddpm_steps": 10, "runs": runs})
+
+    # ---- the extractors and LPIPS: card against CPU, then time and bound
+    rs = np.random.RandomState(11)
+    x512 = rs.rand(2, 512, 512, 3).astype(np.float32)
+    a800 = rs.rand(800, 800, 3).astype(np.float32)
+    b800 = np.clip(a800 + 0.1 * rs.randn(800, 800, 3), 0, 1).astype(np.float32)
+    inc_cpu = FIDInceptionV3()
+    inc_cpu.load_state_dict(torch.load(inc_path, weights_only=True))
+    inc_card = copy.deepcopy(inc_cpu).to(dev).eval()
+    vgg_cpu = random_vgg_features(1)
+    vgg_card = copy.deepcopy(vgg_cpu).to(dev).eval()
+    lp_cpu = load_lpips_model(vgg_path)
+    lp_card = copy.deepcopy(lp_cpu)
+    want = inception_pooled_feature_fn(inc_cpu)(x512)
+    got = inception_pooled_feature_fn(inc_card)(x512)
+    inc_err = float(np.abs(got - want).max())
+    inc_ok = bool(np.allclose(got, want, atol=QUALITY_TOL["inception"], rtol=QUALITY_TOL["inception"]))
+    want = vgg_pooled_feature_fn(vgg_cpu)(x512)
+    got = vgg_pooled_feature_fn(vgg_card)(x512)
+    vgg_rel = float(np.abs(got - want).max() / np.abs(want).max())
+    lp_want = make_lpips_fn(lp_cpu, "cpu")(a800, b800)
+    lp_got = make_lpips_fn(lp_card, dev)(a800, b800)
+    lp_rel = abs(lp_got - lp_want) / abs(lp_want)
+    check = {"inception_512_b2": {"max_abs_err": inc_err, "ok": inc_ok},
+             "vgg_512_b2": {"max_err_of_scale": vgg_rel}, "lpips_800": {"card": lp_got, "cpu": lp_want, "rel": lp_rel},
+             "tol": QUALITY_TOL}
+    emit({"phase": "check", "variant": "quality_card_vs_cpu", **check})
+    if not inc_ok or vgg_rel > QUALITY_TOL["vgg"] or lp_rel > QUALITY_TOL["lpips"]:
+        raise AssertionError(f"extractors: card and CPU disagree beyond tolerance: {check}")
+    del inc_cpu, vgg_cpu, lp_cpu
+    x299 = torch.rand((32, 299, 299, 3), generator=torch.Generator().manual_seed(12)).to(dev)
+    x512 = torch.from_numpy(rs.rand(8, 512, 512, 3).astype(np.float32)).to(dev).permute(0, 3, 1, 2).contiguous()
+    ta = torch.from_numpy(a800).to(dev)[None]
+    tb = torch.from_numpy(b800).to(dev)[None]
+    with torch.no_grad():
+        timing = {
+            "inception_b32_299": (32, conv2d_flops(inc_card, lambda: inc_card(x299)),
+                                  cuda_time_ms(lambda: inc_card(x299), iters=5)),
+            "vgg_relu5_3_b8_512": (8, conv2d_flops(vgg_card, lambda: vgg_card.taps_nchw(x512)),
+                                   cuda_time_ms(lambda: vgg_card.taps_nchw(x512), iters=5)),
+            "lpips_800_pair": (1, conv2d_flops(lp_card, lambda: lp_card(ta, tb)),
+                               cuda_time_ms(lambda: lp_card(ta, tb), iters=5)),
+        }
+    emit({"phase": "quality", "item": "extractors", "gpu_ms": {k: {"ms_per_image" if n > 1 else "ms_per_pair": ms / n, "batch": n,
+                                "conv_gflop_per_call": flops / 1e9,
+                                "f32_bound_ms_per_image" if n > 1 else "f32_bound_ms_per_pair":
+                                    1e3 * flops / PEAK_F32_FLOPS / n,
+                                "share_of_bound": 1e3 * flops / PEAK_F32_FLOPS / ms}
+                                  for k, (n, flops, ms) in timing.items()}})
+    del inc_card, vgg_card, lp_card, x299, x512, ta, tb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- LPIPS in the evaluation, over the tree's eval batches
+    cfg = load_config(os.path.join(full_exp, "expconfig.yaml"), [f"lpips_vgg_weights_path={vgg_path}"])
+    reset_launch_counts_all()
+    timings = {}
+    exp = Experiment(cfg)
+    res, eval_s = timed(lambda: exp.run_eval_only(timings=timings))
+    n_targets = len(exp.data.eval_batches)
+    hw = (exp.data_args["image_height"], exp.data_args["image_width"])
+    model = exp.model
+    chunks = math.ceil(hw[0] * hw[1] / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
+    del exp, model
+    counts = launch_counts_all()
+    emit({"phase": "main_path", "path": "lpips_eval", "launches": counts})
+    expect_launches(counts, "evaluation with LPIPS", exactly={"fused_decode_fwd_normals": 2 * chunks * n_targets},
+                    none=others)
+    results["fused_decode_fwd_normals"]["lpips_eval_launches"] = counts["fused_decode_fwd_normals"]
+    lpips = [r["lpips"] for r in res["records"]]
+    if len(lpips) != n_targets or not all(v is not None and math.isfinite(v) for v in lpips):
+        raise AssertionError(f"evaluation with LPIPS: {lpips}")
+    emit({"phase": "quality", "item": "lpips_eval", "s": eval_s, "targets": n_targets, "size": list(hw),
+          "lpips": lpips, "lpips_s": timings["lpips_s"], "render_s": timings["render_s"],
+          "metrics_s": timings["metrics_s"], "pool_s": timings["pool_s"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the loop's outputs: 1 epoch of 2 steps with everything on
+    exp_dir = os.path.join(out, "loop_exp")
+    ds = "data_source_ImplicitronDataSource_args."
+    syn = ds + "dataset_map_provider_SyntheticDataProvider_args."
+    dl = ds + "data_loader_map_provider_SequenceDataLoaderMapProvider_args."
+    loop = "training_loop_ImplicitronTrainingLoop_args."
+    cfg = load_config("hydrant", [
+        ds + "dataset_map_provider_class_type=SyntheticDataProvider",
+        syn + "n_scenes=2", syn + "n_views_per_scene=33", syn + "image_size=800",
+        dl + "batch_size=33", dl + "dataset_length_train=66", dl + "dataset_length_val=1",
+        "disable_validation=false", loop + "validation_interval=1", loop + "visualize_interval=1",
+        "visualize_denoising_video=true", loop + "profile=true", loop + "profile_steps=2", f"exp_dir={exp_dir}"])
+    records = _Records()
+    loggers = [logging.getLogger(n) for n in ("holo_diffusion_torch.experiment", "holo_diffusion_torch.utils.profiling")]
+    for lg in loggers:
+        lg.setLevel(logging.INFO)
+        lg.addHandler(records)
+    reset_launch_counts_all()
+    (state, stats), loop_s = timed(lambda: Experiment(cfg).run(max_epochs=1))
+    for lg in loggers:
+        lg.removeHandler(records)
+    counts = launch_counts_all()
+    emit({"phase": "main_path", "path": "vis_loop", "launches": counts})
+    model = state.model
+    frame = model.num_passes * math.ceil(model.render_image_height * model.render_image_width
+                                         / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
+    video_frames = math.ceil(model.schedule.num_timesteps / 50)
+    steps = state.step
+    expect_launches(counts, "loop with visualizations",
+                    exactly={"fused_decode_bwd": 2 * steps,
+                             "fused_decode_fwd_normals": 2 * steps + frame * (1 + video_frames)},
+                    none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["fused_decode_fwd_normals"]["vis_loop_launches"] = counts["fused_decode_fwd_normals"]
+    has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    if not has_matplotlib:
+        emit({"phase": "quality", "note": "no matplotlib on this machine: the loop wrote no train_stats.pdf; "
+              "write_dashboard_html called on the run's stats"})
+        write_dashboard_html(stats, exp_dir)
+    files = sorted(os.path.relpath(os.path.join(r, f), exp_dir) for r, _, fs in os.walk(exp_dir) for f in fs)
+    video = [f for f in files if f.startswith("visuals/denoising_00000000")]
+    wanted = ["dashboard.html"] + [f"visuals/val_00000000_{k}_render.png" for k in ("images", "masks", "depths")]
+    if has_matplotlib:
+        wanted.append("train_stats.pdf")
+    traces = [f for f in files if f.startswith("traces/") and os.path.getsize(os.path.join(exp_dir, f)) > 0]
+    missing = [f for f in wanted if f not in files]
+    if missing or not traces or not (video == ["visuals/denoising_00000000.mp4"] or len(video) == video_frames):
+        raise AssertionError(f"the loop's outputs: missing {missing}, traces {traces}, video {video[:3]}...")
+
+    def logged(prefix):  # the seconds an INFO record of the run gives last
+        return [r.args[-1] for r in records.records if r.levelno == logging.INFO and r.msg.startswith(prefix)]
+
+    emit({
+        "phase": "quality", "item": "vis_loop", "s": loop_s, "steps": steps, "s_per_step_profiled": stats.history[0]["train"]["sec/it"],
+        "val_frame_s": stats.history[0]["val"]["sec/it"], "denoising_video_s": logged("denoising video"),
+        "video_frames": video_frames, "video": video[0] if len(video) == 1 else f"{len(video)} PNG frames",
+        "stats_plot_and_dashboard_s": logged("stats plot"), "traced_dispatches_s": logged("traced dispatches"),
+        "matplotlib": has_matplotlib, "traces": traces, "trace_bytes": [os.path.getsize(os.path.join(exp_dir, f))
+                                                                        for f in traces],
+        "visuals": [f for f in files if f.startswith("visuals/") and f not in video],
+        "x_t_png": any(f.endswith("_x_t.png") for f in files)})
+
+
 def main():
     import torch
 
@@ -2072,6 +2321,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     flyaround_full_phase(here, dev, results)
+
+    # ---- sample quality and the loop's outputs, on train_full's checkpoint
+    gc.collect()
+    torch.cuda.empty_cache()
+    quality_phase(here, dev, results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)

@@ -1,6 +1,7 @@
-"""Train, sample and reconstruction CLIs of the port (counterparts of
-holo_diffusion_tpu/cli.py `train_main`, `generate_samples_main` and
-`visualize_reconstruction_main`).
+"""Train, sample, reconstruction and sample-evaluation CLIs of the port
+(counterparts of holo_diffusion_tpu/cli.py `train_main`,
+`generate_samples_main`, `visualize_reconstruction_main` and
+`evaluate_samples_main`).
 
 Train (resumes from the last checkpoint in exp_dir when run again):
 
@@ -29,7 +30,15 @@ first validation scenes:
     python -m holo_diffusion_torch.cli visualize_reconstruction exp_dir=./recon \\
         n_eval_sequences=2 trajectory_type=circular_lsq_fit [empty_space_skip=true]
 
-Sample and reconstruction arguments are key=value (values parse as YAML);
+Score a trained diffusion exp_dir's samples with FID/KID against its train
+frames (`extractor=inception|vgg weights_path=<state_dict>`, or the
+weights-free `random_inception|random_vgg`; installed as
+`holo-torch-evaluate-samples`):
+
+    python -m holo_diffusion_torch.cli evaluate_samples exp_dir=./out num_samples=8 \\
+        poses_per_sample=4 extractor=inception weights_path=pt_inception-2015-12-05.pth
+
+Sample, reconstruction and evaluation arguments are key=value (values parse as YAML);
 keys with a dot are dotted config overrides. All run on CUDA unless given the CPU
 (`--device cpu`, `device=cpu`); float32 stays full float32 (TF32 off).
 """
@@ -46,6 +55,7 @@ import yaml
 
 from .config import load_config, model_args_from_config
 from .device import resolve_device, set_full_precision
+from .evaluate_samples import evaluate_samples
 from .experiment import Experiment
 from .models.holo_model import HoloDiffusionModel
 from .utils.checkpoint_utils import load_experiment
@@ -238,10 +248,64 @@ def visualize_reconstruction_main(argv: Optional[List[str]] = None) -> Dict[str,
     return results
 
 
+def evaluate_samples_main(argv: Optional[List[str]] = None, timings: Optional[Dict[str, float]] = None) -> Dict:
+    """Score a trained diffusion exp_dir's samples: FID/KID of renders of
+    `num_samples` sampled grids x `poses_per_sample` poses against the train
+    split's frames (the JAX CLI's options and defaults, cli.py:254-316);
+    returns the results, also dumped to `dump_path`. `extractor=inception`
+    with a pytorch-fid pt_inception state_dict (`weights_path`) gives the
+    paper's Inception-FID; `extractor=vgg` with torchvision vgg16 weights
+    VGG-FID; `random_inception` and `random_vgg` need no weights (protocol
+    smoke tests). `timings` receives `evaluate_samples`' seconds by phase."""
+    logging.basicConfig(level=logging.INFO)
+    opts, overrides = _key_values(argv)
+    exp_dir = opts.pop("exp_dir")
+    num_samples = int(opts.pop("num_samples", 8))
+    poses_per_sample = int(opts.pop("poses_per_sample", 4))
+    trajectory_distance = float(opts.pop("trajectory_distance", 15.0))
+    extractor = opts.pop("extractor", "random_vgg")
+    # `weights_path` names the inception or vgg state_dict; `vgg_weights_path` is its alias
+    weights_path = opts.pop("weights_path", opts.pop("vgg_weights_path", None))
+    n_real = opts.pop("n_real", None)
+    max_iter = opts.pop("max_iter", None)
+    render_size = opts.pop("render_size", None)
+    use_ema = bool(opts.pop("use_ema", False))
+    seed = int(opts.pop("seed", 0))
+    dump_path = opts.pop("dump_path", os.path.join(exp_dir, "sample_eval_results.json"))
+    device = resolve_device(opts.pop("device", None))
+    if opts:
+        raise ValueError(f"unknown args: {list(opts)}")
+
+    set_full_precision()
+    exp, state = load_experiment(exp_dir, overrides, tuple(render_size) if render_size else None,
+                                 use_ema=use_ema, device=device)
+    # scenes one at a time: the real set stops reading at n_real, and the
+    # CO3D cache stays bounded
+    res = evaluate_samples(
+        state.model,
+        exp.data.train.iter_scenes(),
+        num_samples=num_samples,
+        poses_per_sample=poses_per_sample,
+        trajectory_distance=trajectory_distance,
+        extractor=extractor,
+        vgg_weights_path=weights_path,
+        n_real=n_real,
+        generator=torch.Generator(device=device).manual_seed(seed),
+        max_iter=max_iter,
+        dump_path=dump_path,
+        device=device,
+        timings=timings,
+    )
+    logging.info("sample evaluation: %s", res)
+    return res
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["train"]:
         train_main(sys.argv[2:])
     elif sys.argv[1:2] == ["visualize_reconstruction"]:
         visualize_reconstruction_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["evaluate_samples"]:
+        evaluate_samples_main(sys.argv[2:])
     else:
         generate_samples_main()

@@ -303,6 +303,7 @@ def training_loop_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
         visualize_interval=t.get("visualize_interval", 100),
         whole_dataset_batch=t.get("whole_dataset_batch", False),
         profile=t.get("profile", False),
+        profile_steps=t.get("profile_steps", 3),
         evaluator_ImplicitronEvaluator_args=dict(
             t.get("evaluator_ImplicitronEvaluator_args", {}) or {}
         ),

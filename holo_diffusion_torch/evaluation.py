@@ -123,7 +123,8 @@ def evaluate_new_view_synthesis(
     on `device` (CUDA unless the caller passes "cpu"); scenes may lie on
     the host. `timings`, when given, receives the seconds of each target's
     pooling, render and host metrics under "pool_s", "render_s" and
-    "metrics_s" (each phase waits for the device).
+    "metrics_s" (each phase waits for the device), and with a
+    `perceptual_fn` its seconds apart under "lpips_s".
     """
     dev = place(model, device)
     rng = np.random.RandomState(seed)
@@ -175,8 +176,14 @@ def evaluate_new_view_synthesis(
                 "psnr_fg": float(calc_psnr(torch.tensor(mse_fg, dtype=torch.float32))),
                 "ssim": ssim(pred, gt_m),
                 "mask_iou": inter / max(union, 1.0),
-                "lpips": float(perceptual_fn(pred, gt_m)) if perceptual_fn else None,
+                "lpips": None,
             }
+            if perceptual_fn is not None:
+                t3 = time.perf_counter()
+                rec["lpips"] = float(perceptual_fn(pred, gt_m))
+                if timings is not None:
+                    timings.setdefault("lpips_s", []).append(time.perf_counter() - t3)
+                t2 += time.perf_counter() - t3  # metrics_s leaves LPIPS out
             if scene.depth_map is not None:
                 d_gt = scene.depth_map[ti, ..., 0].cpu().numpy().astype(np.float32)
                 valid = (d_gt > 0) & fg

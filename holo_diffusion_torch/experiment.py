@@ -11,8 +11,13 @@ epoch)`, so an epoch run after a resume draws what it draws in an
 uninterrupted run. `run` resumes from the last checkpoint in `exp_dir` by
 default; with `steps_per_dispatch` K it groups K batches per call of the
 train step; with `eval_only` it evaluates the checkpoint instead
-(`run_eval_only`), and with `disable_testing: false` it evaluates novel
-views at `test_interval` and when finished. Runs on CUDA unless the caller
+(`run_eval_only`, with LPIPS when `lpips_vgg_weights_path` is set), and
+with `disable_testing: false` it evaluates novel views at `test_interval`
+and when finished. With `training_loop.profile` it traces the first
+epoch's dispatches into exp_dir/traces; every `visualize_interval` epochs
+with validation on it dumps PNGs (and with `visualize_denoising_video` a
+denoising video) into exp_dir/visuals; after every checkpoint it writes
+`train_stats.pdf` and `dashboard.html`. Runs on CUDA unless the caller
 passes `device="cpu"`.
 """
 from __future__ import annotations
@@ -20,12 +25,12 @@ from __future__ import annotations
 import logging
 import os
 import random
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .config import (
     audit_unconsumed_keys,
@@ -42,12 +47,16 @@ from .device import DeviceLike, resolve_device
 from .evaluation import evaluate_new_view_synthesis
 from .models.diffusion import LossSecondMomentState
 from .models.holo_model import HoloDiffusionModel
+from .models.lpips import load_lpips_from_torch_files
 from .models.metrics import preprocess_input
+from .ops.image import resize_bilinear_antialiased
 from .parallel.train_step import TrainState, make_eval_step, make_train_step
 from .render_eval import render_image_chunked
 from .train.checkpoint import restore_checkpoint, save_checkpoint
 from .train.optimizer import make_lr_schedule, make_optimizer
 from .train.stats import Stats
+from .utils.profiling import SteadyStateProfiler, enable_anomaly_detection
+from .utils.vis import denoising_video, plot_stats_pdf, visualize_preds, write_dashboard_html
 from .weights import init_weights
 
 logger = logging.getLogger(__name__)
@@ -66,17 +75,12 @@ def seed_all_random_engines(seed: int):
     random.seed(seed)
 
 
-def _check_ported(cfg, loop_args) -> None:
+def _check_ported(cfg) -> None:
     """Raise for each feature the config asks for that the port lacks,
     naming the ROADMAP.md §1 item that ports it."""
-    validation_on = loop_args["validation_interval"] > 0 and not cfg.get("disable_validation", False)
     unported = [
-        (bool(cfg.get("compact_sources", False)), "compact_sources", 3),
-        (bool(cfg.get("packed_transfer", False)), "packed_transfer", 3),
-        (bool(loop_args["profile"]), "training_loop profile", 6),
-        (validation_on and loop_args["visualize_interval"] > 0,
-         "visualize_interval > 0 with validation on (visualizations)", 6),
-        (bool(cfg.get("lpips_vgg_weights_path")), "lpips_vgg_weights_path (LPIPS in the evaluation)", 6),
+        (bool(cfg.get("compact_sources", False)), "compact_sources", 1),
+        (bool(cfg.get("packed_transfer", False)), "packed_transfer", 1),
     ]
     for asked, what, item in unported:
         if asked:
@@ -88,16 +92,6 @@ def _host_floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     if not metrics:
         return {}
     return dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
-
-
-def _resize_bilinear_antialiased(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B, height, width, C) as `jax.image.resize(...,
-    "bilinear")` computes it: half-pixel centres, a triangle filter widened
-    by the scale when shrinking (antialiasing). ops/image.py:resize_image
-    does not antialias, as the model's own resize must not."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1)
 
 
 class Experiment:
@@ -113,11 +107,10 @@ class Experiment:
         self.data_args = data_source_args_from_config(cfg)
         ds_cfg = cfg.get("data_source_ImplicitronDataSource_args", {})
         provider = ds_cfg.get("dataset_map_provider_class_type", "JsonIndexDatasetMapProviderV2")
-        _check_ported(cfg, self.loop_args)
+        _check_ported(cfg)
         seed_all_random_engines(self.seed)
         if cfg.get("detect_anomaly", False):
-            # the reference's detect_anomaly (experiment.py:181-184)
-            torch.autograd.set_detect_anomaly(True)
+            enable_anomaly_detection()
 
         self.model = HoloDiffusionModel(**self.model_args)
         self.data = self._build_data_source(ds_cfg, provider)
@@ -219,11 +212,17 @@ class Experiment:
             eval_batches = (self.data.get_eval_batch(i) for i in range(len(self.data.eval_batches)))
         else:
             scenes = self._eval_scenes()
+        perceptual_fn = None
+        lpips_vgg = self.cfg.get("lpips_vgg_weights_path")
+        if lpips_vgg:
+            perceptual_fn = load_lpips_from_torch_files(lpips_vgg, self.cfg.get("lpips_lin_weights_path"),
+                                                        device=self.device)
         ev = self.loop_args.get("evaluator_ImplicitronEvaluator_args", {})
         state.model.eval()
         res = evaluate_new_view_synthesis(
             state.model, scenes,
             difficulty_bin_breaks=tuple(ev.get("camera_difficulty_bin_breaks", (0.97, 0.98))),
+            perceptual_fn=perceptual_fn,
             eval_batches=eval_batches,
             dump_path=os.path.join(self.exp_dir, f"eval_results_epoch_{max(epoch, 0):08d}.json"),
             device=self.device,
@@ -295,7 +294,7 @@ class Experiment:
                                      model.mask_images, model.mask_depths, model.mask_threshold,
                                      model.bg_color)
         H, W = model.render_image_height, model.render_image_width
-        gt = _resize_bilinear_antialiased(gt, H, W)[0]
+        gt = resize_bilinear_antialiased(gt, H, W)[0]
         pred = out["images_render"]
         mse = torch.mean((pred - gt) ** 2)
         result = {
@@ -306,11 +305,32 @@ class Experiment:
             "masks_render": out["masks_render"][None],
         }
         if fg is not None:
-            fg_r = _resize_bilinear_antialiased(fg, H, W)[0] > 0.5
+            fg_r = resize_bilinear_antialiased(fg, H, W)[0] > 0.5
             denom = torch.clamp(fg_r.sum() * 3, min=1)
             mse_fg = torch.sum(((pred - gt) ** 2) * fg_r) / denom
             result["loss_rgb_psnr_fg"] = -10.0 * torch.log10(torch.clamp(mse_fg, min=1e-12))
         return result
+
+    def _visualize(self, model: HoloDiffusionModel, preds: Dict[str, torch.Tensor], epoch: int) -> None:
+        """A validation epoch's visual dumps into exp_dir/visuals (the
+        reference's visdom panels, training_loop.py:501-516): its last
+        preds as PNG grids, and with `visualize_denoising_video` the DDPM
+        denoising of a fresh sample seen by the first val scene's first
+        camera (a train scene's when val is empty)."""
+        vis_dir = os.path.join(self.exp_dir, "visuals")
+        visualize_preds(preds, vis_dir, "val", epoch)
+        if not self.cfg.get("visualize_denoising_video", False):
+            return
+        ds = self.data.val if len(self.data.val) else self.data.train
+        if not len(ds):
+            logger.warning("visualize_denoising_video: no scenes in any split; skipping the denoising-video dump")
+            return
+        camera = ds.get_scene(0).camera[:1]
+        generator = torch.Generator(device=self.device).manual_seed(self.seed + epoch)
+        t0 = time.perf_counter()
+        path = denoising_video(model, os.path.join(vis_dir, f"denoising_{epoch:08d}.mp4"), camera, generator,
+                               device=self.device)
+        logger.info("denoising video %s in %.3f s", path, time.perf_counter() - t0)
 
     def run(self, max_epochs: Optional[int] = None):
         """Train from the last checkpoint in `exp_dir` (unless `resume` is
@@ -339,6 +359,7 @@ class Experiment:
         print_interval = self.loop_args["metric_print_interval"]
         val_interval = self.loop_args["validation_interval"]
         test_interval = self.loop_args["test_interval"]
+        vis_interval = self.loop_args["visualize_interval"]
         testing = not self.cfg.get("disable_testing", True)
         # calls of the train step an epoch, each of k optimizer steps
         n_calls = max(1, self.n_batches_train // k)
@@ -362,9 +383,17 @@ class Experiment:
                 while len(pending) > keep:
                     stats.update(_host_floats(pending.popleft()), "train")
 
+            # training_loop.profile: a trace of the first epoch's dispatches
+            # 1..profile_steps (dispatch 0 warms the caches up)
+            profiler = (SteadyStateProfiler(os.path.join(self.exp_dir, "traces"), self.loop_args["profile_steps"])
+                        if self.loop_args["profile"] and epoch == start_epoch else None)
             self.model.train()
             for it, batch in enumerate(AsyncLoader(self._group_steps(loader), transfer=self._to_device)):
+                if profiler is not None:
+                    profiler.before_dispatch(it)
                 state, metrics = train_step(state, batch, generator)
+                if profiler is not None:
+                    profiler.after_dispatch(it, metrics)
                 pending.append(metrics)
                 if print_interval and it % print_interval == 0:
                     flush(0)
@@ -372,11 +401,15 @@ class Experiment:
                 else:
                     flush(1)
             flush(0)
+            if profiler is not None:
+                profiler.finish(metrics)
 
             if val_interval > 0 and epoch % val_interval == 0 and not self.cfg.get("disable_validation", False):
                 self.model.eval()
-                self._val_epoch(state, stats, eval_step, epoch)
+                out = self._val_epoch(state, stats, eval_step, epoch)
                 logger.info(stats.status_line("val"))
+                if vis_interval and epoch % vis_interval == 0:
+                    self._visualize(state.model, out, epoch)
 
             if testing and test_interval > 0 and epoch % test_interval == 0:
                 res = self._test_eval(state, f"eval_epoch_{epoch:08d}.json")
@@ -386,6 +419,15 @@ class Experiment:
             if self.loop_args["store_checkpoints"]:
                 save_checkpoint(self.exp_dir, epoch, state, stats,
                                 purge=self.loop_args["store_checkpoints_purge"])
+                t0 = time.perf_counter()
+                try:
+                    plot_stats_pdf(stats, os.path.join(self.exp_dir, "train_stats.pdf"))
+                    write_dashboard_html(stats, self.exp_dir)
+                    logger.info("stats plot and dashboard in %.3f s", time.perf_counter() - t0)
+                except ImportError as e:
+                    if not (e.name or "").startswith("matplotlib"):
+                        raise
+                    logger.warning("stats plot failed: %s", e)
         if testing and self.loop_args["test_when_finished"]:
             self._test_eval(state, "eval_final.json")
         return state, stats

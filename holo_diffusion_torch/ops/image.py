@@ -45,3 +45,13 @@ def resize_image(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
     x = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False,
                       antialias=False)
     return x.permute(0, 2, 3, 1)
+
+
+def resize_bilinear_antialiased(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, height, width, C) as `jax.image.resize(...,
+    "bilinear")` computes it: half-pixel centres, a triangle filter widened
+    by the scale when shrinking (antialiasing), plain bilinear when growing.
+    `resize_image` does not antialias, as the model's own resize must not."""
+    x = F.interpolate(image.permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1)

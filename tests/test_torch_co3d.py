@@ -437,7 +437,7 @@ def test_tiny_experiment_runs_and_resumes_on_co3d(trees, tmp_path):
 def test_hydrant_with_the_co3d_provider_builds(trees, tmp_path):
     """hydrant.yaml's data section, pointed at a tree: no NotImplementedError,
     no unconsumed key; compact_sources and packed_transfer still raise,
-    naming ROADMAP item 3."""
+    naming ROADMAP item 1."""
     ds = "data_source_ImplicitronDataSource_args.dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
     base = [f"{ds}dataset_root={trees['torch']}", f"{ds}category=synthball", f"exp_dir={tmp_path}"]
     cfg = load_config("hydrant", base)
@@ -448,7 +448,7 @@ def test_hydrant_with_the_co3d_provider_builds(trees, tmp_path):
     assert isinstance(exp.data, tco3d.CO3DDataProvider) and exp.batch_size == 33
     assert exp.data.eval_batches is not None and len(exp.data.train) == N_SEQ
     for flag in ("compact_sources=true", "packed_transfer=true"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3\b"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 1\b"):
             Experiment(load_config("hydrant", base + [flag]), device="cpu")
 
 

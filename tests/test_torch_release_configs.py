@@ -93,7 +93,11 @@ def test_release_config_translates_as_jax(config):
             assert v == {kk: j[k][kk] for kk in v}, k
         else:
             assert v == j[k], k
-    assert training_loop_args_from_config(cfg) == jcfg.training_loop_args_from_config(jc)
+    # the port's loop also reads `profile_steps`, which the JAX loop takes
+    # as `loop_args.get("profile_steps", 3)` (JAX experiment.py:601)
+    loop = training_loop_args_from_config(cfg)
+    assert loop.pop("profile_steps") == 3
+    assert loop == jcfg.training_loop_args_from_config(jc)
     assert data_source_args_from_config(cfg) == jcfg.data_source_args_from_config(jc)
     jo = {**jcfg.optimizer_args_from_config(jc), "clip_grad": jcfg.training_loop_args_from_config(jc)["clip_grad"]}
     for part in optimizer_args_from_config(cfg).values():

@@ -166,6 +166,9 @@ def test_port_imports_no_jax():
     for root, _, names in os.walk(os.path.join(REPO, "holo_diffusion_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    for new in ("models/lpips.py", "models/inception.py", "evaluation_fid.py", "evaluate_samples.py",
+                "utils/vis.py", "utils/profiling.py"):
+        assert os.path.join(REPO, "holo_diffusion_torch", new) in files, new
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "holo_diffusion_tpu")
     for path in files:
         for mod in _imported_modules(path):

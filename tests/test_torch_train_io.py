@@ -80,9 +80,14 @@ def test_stats_match_jax(log_vars, tmp_path):
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_loop_and_data_args_match_jax(config):
+    """The same settings; the port's loop also reads `profile_steps`, which
+    the JAX loop takes as `loop_args.get("profile_steps", 3)` (JAX
+    experiment.py:601)."""
     cfg = tcfg.load_config(config)
     jc = jcfg.load_config(config)
-    assert tcfg.training_loop_args_from_config(cfg) == jcfg.training_loop_args_from_config(jc)
+    loop = tcfg.training_loop_args_from_config(cfg)
+    assert loop.pop("profile_steps") == 3
+    assert loop == jcfg.training_loop_args_from_config(jc)
     assert tcfg.data_source_args_from_config(cfg) == jcfg.data_source_args_from_config(jc)
 
 
@@ -279,25 +284,27 @@ _UNPORTED = {
     # EMA, the loss-aware sampler and steps per dispatch are ported
     # (tests/test_torch_train_full.py); asked for beside compact sources,
     # they do not hide its refusal
-    "ema": (["ema_rate=0.5", "compact_sources=true"], 3),
+    "ema": (["ema_rate=0.5", "compact_sources=true"], 1),
     "loss_second_moment": ([MODEL + "diffusion_args.schedule_sampler_type=loss-second-moment",
-                            "compact_sources=true"], 3),
-    "steps_per_dispatch": (["steps_per_dispatch=2", "compact_sources=true"], 3),
+                            "compact_sources=true"], 1),
+    "steps_per_dispatch": (["steps_per_dispatch=2", "compact_sources=true"], 1),
     # the CO3D provider itself is ported (tests/test_torch_co3d.py); its
     # compact-source path is not
-    "co3d": ([DS + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2", "compact_sources=true"], 3),
-    "compact_sources": (["compact_sources=true"], 3),
-    "packed_transfer": (["packed_transfer=true"], 3),
+    "co3d": ([DS + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2", "compact_sources=true"], 1),
+    "compact_sources": (["compact_sources=true"], 1),
+    "packed_transfer": (["packed_transfer=true"], 1),
     # evaluation and its stratified sampling are ported
     # (tests/test_torch_evaluation.py, tests/test_torch_eval_sampling.py);
     # asked for beside compact sources, they do not hide its refusal
-    "eval_only": ([LOOP + "eval_only=true", _STRATIFIED_EVAL, "compact_sources=true"], 3),
+    "eval_only": ([LOOP + "eval_only=true", _STRATIFIED_EVAL, "compact_sources=true"], 1),
     "test_interval": (["disable_testing=false", LOOP + "test_interval=1", _STRATIFIED_EVAL,
-                       "compact_sources=true"], 3),
+                       "compact_sources=true"], 1),
     "test_when_finished": (["disable_testing=false", LOOP + "test_when_finished=true", _STRATIFIED_EVAL,
-                            "compact_sources=true"], 3),
-    "profile": ([LOOP + "profile=true"], 6),
-    "visualize": (["disable_validation=false", LOOP + "visualize_interval=1"], 6),
+                            "compact_sources=true"], 1),
+    # the profiler and the visualizations are ported (tests/test_torch_vis.py);
+    # asked for beside compact sources, they do not hide its refusal
+    "profile": ([LOOP + "profile=true", "compact_sources=true"], 1),
+    "visualize": (["disable_validation=false", LOOP + "visualize_interval=1", "compact_sources=true"], 1),
 }
 
 
@@ -312,7 +319,8 @@ def test_ported_settings_of_those_keys_do_not_raise(tmp_path):
     """The same keys at the values the port runs: validation without
     visualizations, test settings while testing is disabled; then the
     features ported since: EMA, the loss-aware sampler, steps per dispatch,
-    eval_only, test evaluation and stratified evaluation sampling."""
+    eval_only, test evaluation and stratified evaluation sampling; then the
+    profiler, the visualizations and LPIPS in the evaluation."""
     Experiment(tiny_cfg(tmp_path / "exp", [
         "disable_validation=false", LOOP + "visualize_interval=0", LOOP + "test_interval=1",
         "ema_rate=0.0", "steps_per_dispatch=1", "compact_sources=false"]), device="cpu")
@@ -321,6 +329,10 @@ def test_ported_settings_of_those_keys_do_not_raise(tmp_path):
         LOOP + "eval_only=true", "disable_testing=false", LOOP + "test_interval=1",
         LOOP + "test_when_finished=true", _STRATIFIED_EVAL]), device="cpu")
     assert (exp.ema_rate, exp.schedule_sampler, exp.steps_per_dispatch) == (0.5, "loss-second-moment", 2)
+    exp = Experiment(tiny_cfg(tmp_path / "exp3", [
+        LOOP + "profile=true", LOOP + "profile_steps=2", "disable_validation=false", LOOP + "visualize_interval=1",
+        "visualize_denoising_video=true", "lpips_vgg_weights_path=/nonexistent/vgg.pth"]), device="cpu")
+    assert (exp.loop_args["profile"], exp.loop_args["profile_steps"]) == (True, 2)
 
 
 def test_load_experiment_rejects_ema(tmp_path):
