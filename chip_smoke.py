@@ -91,8 +91,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
            validation, visualizations, the denoising video (1000 DDPM
            steps, a chunked 512^2 frame every 50) and the profiler, and the
            files it leaves (train_stats.pdf needs matplotlib)
+  scale_out  compact sources, packed transfer and data parallelism at
+           hydrant width on the CO3D tree: `Experiment.run` 2 epochs of 2
+           steps with and without `compact_sources` (s per step, K2/K3 a
+           step, the scene cache, a batch's bytes and pinned copy, a
+           scene's compaction, compact vs full objective within 10 %, a
+           narrow compact step card vs CPU); one packed 33-frame batch
+           against the leaf-by-leaf copy, and a packed loop bitwise the
+           unpacked one (deterministic mode); a process group of one rank
+           through NCCL: 3 steps through `make_train_step(mesh=...)`
+           against the plain step, within the plain step's own rerun spread
+           on the fused model and bitwise in deterministic mode, the flat
+           all_reduce's ms; `torchrun --nproc_per_node 1` on the train CLI
+           with compact sources and packed transfer, its checkpoint loaded
   kernels summary, the card's name and power limit, and the result line.
-Nineteen main paths, each with the launch counters zeroed right before it and
+Twenty main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
 K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
 steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
@@ -108,9 +121,11 @@ else); then sample quality's: the four extractors' sample evaluations
 (K3 twice a one-forward frame, nothing else), evaluation with LPIPS (K3
 twice a chunk of each target) and the loop with visualizations (K2 twice a
 step, K3 twice a step and twice a chunk of each validation and video
-frame).
+frame); then the compact loop's (K2 twice a step, K3 twice a step and twice
+a chunk of each validation frame, nothing else).
 Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
+import contextlib
 import copy
 import gc
 import json
@@ -944,7 +959,8 @@ def warm_loss_history(T, H=10, seed=21):
     return (rs.rand(T, H) * np.linspace(0.2, 2.0, T)[:, None]).astype(np.float32)
 
 
-def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=False, **model_args):
+def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=False, compact=False,
+                      **model_args):
     """One training step of a narrow model (`narrow_model_args`; `model_args`
     such as fuse_decode="off") on the card and on the CPU with the same
     weights and the same injected draws, on `scene` (a CPU batch; 6
@@ -957,7 +973,9 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=
     rate 0.9 and two SGD steps in one call (the second on the scene's frames
     reversed, without the bootstrap pass); the gradients are the second
     step's, and the EMA's change and the sampler's state are held too.
-    Returns the launch counts of the card's run."""
+    With `compact` the scene is compacted first (the model's
+    `SourceCompactor`, native C++), and the step pools the host-resized
+    sources. Returns the launch counts of the card's run."""
     import numpy as np
     import torch
 
@@ -975,6 +993,10 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=
     card_model = copy.deepcopy(cpu_model).to(dev)
     if scene is None:
         scene = make_synthetic_scene(n_views=6, image_size=48, seed=2, device="cpu")
+    if compact:
+        from holo_diffusion_torch.data.compact import SourceCompactor
+
+        scene = SourceCompactor.from_model(cpu_model)(scene)
     rs = np.random.RandomState(3)
     draws = narrow_draws(rs, feature_size)
     if loss_aware_ema:
@@ -995,7 +1017,9 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=
             objs[label] = metrics["objective"].item()
         else:
             preds = m(camera=b.camera, image_rgb=b.image_rgb, fg_probability=b.fg_probability,
-                      mask_crop=b.mask_crop, depth_map=b.depth_map, training=True, draws=draws)
+                      mask_crop=b.mask_crop, depth_map=b.depth_map, training=True, draws=draws,
+                      src_image_rgb=b.src_image_rgb, src_fg_probability=b.src_fg_probability,
+                      src_mask_crop=b.src_mask_crop)
             preds["objective"].backward()
             objs[label] = preds["objective"].item()
     gated = ("net_3d.out.2.weight", "pooled_feature_mapper.weight",
@@ -1260,7 +1284,8 @@ def same_bits(a, b):
 
     pairs = [(getattr(a.camera, f.name), getattr(b.camera, f.name)) for f in dataclasses.fields(a.camera)]
     pairs += [(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)[1:]]
-    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for x, y in pairs)
+    return all((x is None and y is None) or (x is not None and y is not None and x.dtype == y.dtype
+                                             and torch.equal(x.cpu(), y.cpu())) for x, y in pairs)
 
 
 def co3d_phase(here, dev, results):
@@ -2135,6 +2160,348 @@ def quality_phase(here, dev, results):
         "x_t_png": any(f.endswith("_x_t.png") for f in files)})
 
 
+def _tensor_diff(a, b):
+    """(bitwise equal, max abs difference) of two lists of tensors."""
+    import torch
+
+    same = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    diff = max((float((x.double() - y.double()).abs().max()) for x, y in zip(a, b) if x.numel()), default=0.0)
+    return same, diff
+
+
+def scale_out_phase(here, dev, results):
+    """Compact sources, packed transfer and data parallelism at hydrant
+    width, on the CO3D tree the `co3d` phase wrote:
+    (1) `Experiment.run` 2 epochs of 2 steps (a 512^2 validation frame an
+    epoch, no checkpoints) with `compact_sources` and without: s per step,
+    K3/K2 launches per step (the main path `scale_out_compact`), the scene
+    cache's hits and misses; a batch's bytes and pinned copy both ways; the
+    native compaction of a scene; one batch's objective compact vs full
+    (JAX's 10 % bound); a narrow compact step card vs CPU;
+    (2) packed transfer of one 33-frame batch (one pinned buffer against the
+    leaf-by-leaf copy; the unpacked leaves bitwise) and 1 epoch of 2 steps
+    with `packed_transfer` against the same run without, bitwise, in
+    `deterministic` mode;
+    (3) a process group of one rank through NCCL (FileStore) and 3 steps of
+    `make_train_step(..., mesh=...)` (loss-second-moment sampler) against
+    the plain step from the same state and generator, and the plain step
+    run again: on the fused model (K3, K2) within the plain step's own
+    run-to-run spread (K2 sums with atomics, so the card's step is not
+    bitwise reproducible), and in `deterministic` mode bitwise; the flat
+    gradient all_reduce's and the sampler all_gather's device ms;
+    (4) `torchrun --nproc_per_node 1` on the train CLI with compact sources
+    and packed transfer, 1 epoch of 2 steps: exit 0, a checkpoint that
+    `load_experiment` reads."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from holo_diffusion_torch.config import load_config, optimizer_args_from_config
+    from holo_diffusion_torch.data.packing import BatchPacker, packed_transfer
+    from holo_diffusion_torch.experiment import Experiment
+    from holo_diffusion_torch.models import diffusion as gd
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.parallel.collectives import gathered_loss_aware_update, mean_over_ranks
+    from holo_diffusion_torch.parallel.mesh import _state_tensors, make_mesh
+    from holo_diffusion_torch.parallel.train_step import TrainState, make_train_step
+    from holo_diffusion_torch.train.optimizer import make_lr_schedule, make_optimizer
+    from holo_diffusion_torch.utils.checkpoint_utils import load_experiment
+    from holo_diffusion_torch.weights import init_weights
+
+    root = os.path.join(here, "build", "chip_smoke", "co3d")
+    work = os.path.join(here, "build", "chip_smoke", "scale_out")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ds = "data_source_ImplicitronDataSource_args."
+    prov = ds + "dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
+    dl = ds + "data_loader_map_provider_SequenceDataLoaderMapProvider_args."
+    loop = "training_loop_ImplicitronTrainingLoop_args."
+    co3d_args = [ds + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2", prov + f"dataset_root={root}",
+                 prov + "category=synthball", dl + "dataset_length_train=66", dl + "dataset_length_val=1"]
+    report = {}
+
+    def cfg(name, *extra):
+        return load_config("hydrant", [*co3d_args, loop + "visualize_interval=0", loop + "store_checkpoints=false",
+                                       f"exp_dir={os.path.join(work, name)}", *extra])
+
+    # ---- (1) compact sources against full batches, 2 epochs of 2 steps
+    runs = {}
+    for label, extra in (("full", ()), ("compact", ("compact_sources=true",))):
+        exp = Experiment(cfg(label, "disable_validation=false", *extra))
+        reset_launch_counts_all()
+        t0 = time.perf_counter()
+        state, stats = exp.run(max_epochs=2)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts_all()
+        if label == "compact":
+            emit({"phase": "main_path", "path": "scale_out_compact", "launches": counts})
+        model = state.model
+        frame_launches = model.num_passes * math.ceil(
+            model.render_image_height * model.render_image_width
+            / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
+        expect_launches(counts, f"{label} loop",
+                        exactly={"fused_decode_bwd": 2 * state.step,
+                                 "fused_decode_fwd_normals": 2 * state.step + 2 * frame_launches},
+                        none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+        hist = stats.history
+        if state.step != 4 or not all(math.isfinite(x) for e in hist for sp in ("train", "val")
+                                      for x in e[sp].values()):
+            raise AssertionError(f"{label} loop: {state.step} steps, history {hist}")
+        runs[label] = {"run_s": run_s, "s_per_step_stats": [e["train"]["sec/it"] for e in hist],
+                       "val_frame_s": [e["val"]["sec/it"] for e in hist],
+                       "train_objective": [e["train"]["objective"] for e in hist],
+                       "K2_per_step": counts["fused_decode_bwd"] / state.step,
+                       "K3_per_step": (counts["fused_decode_fwd_normals"] - 2 * frame_launches) / state.step}
+        if label == "compact":
+            results["fused_decode_bwd"]["scale_out_compact_launches"] = counts["fused_decode_bwd"]
+            results["fused_decode_fwd_normals"]["scale_out_compact_launches"] = counts["fused_decode_fwd_normals"]
+            runs[label]["scene_cache"] = {"hits": exp._train_data.hits, "misses": exp._train_data.misses,
+                                          "val_hits": exp._val_data.hits, "val_misses": exp._val_data.misses}
+            if exp._train_data.misses < 1 or exp._val_data.misses < 1:
+                raise AssertionError(f"the compact scene cache was not used: {runs[label]['scene_cache']}")
+            compact_exp, compact_state = exp, state
+        else:
+            del exp, state
+    report["loops"] = runs
+
+    exp, state = compact_exp, compact_state
+    comp, model = exp.compactor, state.model
+    batch = exp.data.train.sample_batch(np.random.RandomState(3), exp.batch_size)
+    cbatch = comp(batch)
+    scene = exp.data.train.get_scene(0)
+    t0 = time.perf_counter()
+    comp.compact_frames(scene.image_rgb, scene.fg_probability, scene.mask_crop)
+    compact_scene_ms = 1e3 * (time.perf_counter() - t0)
+
+    def pinned_copy_ms(b):
+        pinned = b.pin_memory()
+        out = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            on_card = pinned.to(dev, non_blocking=True)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return out, on_card
+
+    full_ms, _ = pinned_copy_ms(batch)
+    compact_ms, compact_on_card = pinned_copy_ms(cbatch)
+    if not same_bits(compact_on_card, cbatch):
+        raise AssertionError("a compact batch on the card differs from the host batch")
+    # one batch, the same weights and draws, compact against full
+    model.train()
+    objs = {}
+    for label, b in (("full", batch), ("compact", cbatch)):
+        b = b.pin_memory().to(dev, non_blocking=True)
+        with torch.no_grad():
+            preds = model(camera=b.camera, image_rgb=b.image_rgb, fg_probability=b.fg_probability,
+                          mask_crop=b.mask_crop, depth_map=b.depth_map, src_image_rgb=b.src_image_rgb,
+                          src_fg_probability=b.src_fg_probability, src_mask_crop=b.src_mask_crop, training=True,
+                          draws=torch.Generator(device=dev).manual_seed(17))
+        objs[label] = preds["objective"].item()
+    rel = abs(objs["compact"] - objs["full"]) / (abs(objs["full"]) + 1e-3)
+    report["compact"] = {"frames": exp.batch_size, "targets": comp.n_targets(exp.batch_size),
+                         "src_size": list(cbatch.src_image_rgb.shape[1:3]), "drop_depth": comp.drop_depth,
+                         "frame_bytes": {"full": frame_bytes(batch), "compact": frame_bytes(cbatch)},
+                         "h2d_pinned_ms": {"full": full_ms, "compact": compact_ms},
+                         "compact_scene_ms": compact_scene_ms, "scene_frames": scene.batch_size,
+                         "objective": objs, "objective_rel_diff": rel, "tol": 0.1}
+    if rel > 0.1:
+        raise AssertionError(f"compact and full objectives differ by {rel:.3f} of the full one")
+    del exp, state, compact_exp, compact_state, model, compact_on_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_check_phase(dev, "scale_out_compact_card_vs_cpu", compact=True)
+
+    # ---- (2) packed transfer: one 33-frame batch, then a loop with and without
+    packer = BatchPacker()
+    host_ms, packed_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        buf = packer.pack(batch, pin=True)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        on_card = buf.to(dev, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        packed_ms.append(start.elapsed_time(end))
+    leaf_ms, _ = pinned_copy_ms(batch)
+    unpacked_bitwise = same_bits(packer.unpack(on_card), batch)
+    del buf, on_card
+    finals = {}
+    with deterministic():
+        for label, extra in (("unpacked", ()), ("packed", ("packed_transfer=true",))):
+            exp = Experiment(cfg(label, "disable_validation=true", f"{SAMPLER_KEY}=gather", *extra))
+            unfuse(exp.model)
+            t0 = time.perf_counter()
+            state, stats = exp.run(max_epochs=1)
+            torch.cuda.synchronize()
+            finals[label] = (_state_tensors(state), time.perf_counter() - t0, stats.history[0]["train"]["sec/it"])
+            del state, exp
+    loop_same, loop_diff = _tensor_diff(finals["unpacked"][0], finals["packed"][0])
+    report["packed"] = {"bytes": packer.nbytes, "leaves": len(packer.structure), "pack_host_ms": host_ms,
+                        "h2d_packed_ms": packed_ms, "h2d_leaf_by_leaf_ms": leaf_ms,
+                        "unpacked_bitwise": unpacked_bitwise,
+                        "loop_s": {k: v[1] for k, v in finals.items()},
+                        "loop_s_per_step": {k: v[2] for k, v in finals.items()},
+                        "loop_state_bitwise": loop_same, "loop_state_max_abs_diff": loop_diff}
+    del finals
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not unpacked_bitwise or not loop_same:
+        raise AssertionError(f"packed transfer changed bits: {report['packed']}")
+
+    # ---- (3) one rank through NCCL against the plain step
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(work, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(dev)
+        hcfg = load_config("hydrant")
+        sbatch = synthetic_batch(hcfg, dev)
+        oa = optimizer_args_from_config(hcfg)
+
+        def three_steps(model, initial, m):
+            model.load_state_dict(initial)
+            opt = make_optimizer(model.named_parameters(), **oa["optimizer"],
+                                 schedule=make_lr_schedule(oa["optimizer"]["lr"], **oa["schedule"]))
+            st = TrainState.create(model, opt, sampler_state=gd.LossSecondMomentState.create(
+                model.schedule.num_timesteps, device=dev))
+            step = make_train_step(model, opt, schedule_sampler="loss-second-moment", mesh=m)
+            gen = torch.Generator(device=dev).manual_seed(29)
+            secs, metrics = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, mt = step(st, sbatch, gen)
+                metrics.append(torch.stack(list(mt.values())))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            return [t.clone() for t in _state_tensors(st)] + metrics, secs
+
+        def against_plain(model):
+            model = model.to(dev).train()
+            initial = {k: v.clone() for k, v in model.state_dict().items()}
+            plain, plain_s = three_steps(model, initial, None)
+            nccl, nccl_s = three_steps(model, initial, mesh)
+            again, again_s = three_steps(model, initial, None)
+            (nccl_same, nccl_diff), (rerun_same, rerun_diff) = _tensor_diff(plain, nccl), _tensor_diff(plain, again)
+            return {"s_per_step": {"plain": plain_s, "nccl": nccl_s, "plain_again": again_s},
+                    "nccl_vs_plain_bitwise": nccl_same, "nccl_vs_plain_max_abs_diff": nccl_diff,
+                    "plain_rerun_bitwise": rerun_same, "plain_rerun_max_abs_diff": rerun_diff}
+
+        model = init_weights(build_hydrant(hcfg), seed=0)
+        reset_launch_counts_all()
+        fused = against_plain(model)
+        counts = launch_counts_all()
+        expect_launches(counts, "NCCL steps", exactly={"fused_decode_bwd": 18, "fused_decode_fwd_normals": 18})
+        with deterministic():
+            det_model = unfuse(init_weights(build_hydrant(load_config("hydrant", [f"{SAMPLER_KEY}=gather"])), seed=0))
+            det = against_plain(det_model)
+        del det_model
+        # the collectives alone: a hydrant-sized gradient list, the sampler's pairs
+        grads = [torch.randn_like(p) for p in model.parameters()]
+        nbytes = sum(g.numel() * g.element_size() for g in grads)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+
+        def events_ms(fn, n=5):
+            fn()
+            out = []
+            for _ in range(n):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                out.append(start.elapsed_time(end))
+            return out
+
+        all_reduce_ms = events_ms(lambda: dist.all_reduce(flat))
+        mean_ms = events_ms(lambda: mean_over_ranks(grads))
+        sampler = gd.LossSecondMomentState.create(model.schedule.num_timesteps, device=dev)
+        ts, loss = torch.tensor([400, 90], device=dev), torch.tensor(0.5, device=dev)
+        gather_ms = events_ms(lambda: gathered_loss_aware_update(sampler, ts, loss, [True, True]))
+        report["nccl_world_1"] = {
+            "backend": dist.get_backend(), "steps": 3, "fused": fused, "deterministic_unfused": det,
+            "grad_bytes": nbytes, "grad_tensors": len(grads), "all_reduce_ms": all_reduce_ms,
+            "mean_over_ranks_ms": mean_ms, "loss_aware_gather_update_ms": gather_ms}
+        del grads, flat, model, sbatch
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fused step within 4 x the plain step's own spread; bitwise where
+    # the plain step reruns bitwise
+    if not (det["plain_rerun_bitwise"] and det["nccl_vs_plain_bitwise"]) or not (
+            fused["nccl_vs_plain_bitwise"] or fused["nccl_vs_plain_max_abs_diff"]
+            <= 4 * fused["plain_rerun_max_abs_diff"]):
+        raise AssertionError(f"NCCL at world size 1 differs from the plain step: {report['nccl_world_1']}")
+
+    # ---- (4) torchrun on the train CLI, compact sources and packed transfer
+    exp_dir = os.path.join(work, "torchrun")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "holo_diffusion_torch.cli", "train", "--config-name", "hydrant", "--max-epochs", "1",
+           *co3d_args, "compact_sources=true", "packed_transfer=true", f"exp_dir={exp_dir}"]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True, timeout=300)
+    torchrun_s = time.perf_counter() - t0
+    with open(os.path.join(work, "torchrun.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"torchrun exited {proc.returncode}")
+    _, loaded = load_experiment(exp_dir, device=dev)
+    ckpt_epochs = sorted(os.listdir(exp_dir))
+    report["torchrun"] = {"returncode": proc.returncode, "s": torchrun_s, "loaded_step": loaded.step,
+                          "exp_dir": [n for n in ckpt_epochs if n.startswith("model_epoch_")]}
+    if loaded.step != 2:
+        raise AssertionError(f"the torchrun checkpoint holds step {loaded.step}, expected 2")
+    del loaded
+    emit({"phase": "scale_out", **report})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms (PyTorch's sort-based index accumulation,
+    cuDNN's deterministic convolutions) for runs that must repeat bitwise;
+    the earlier settings come back after."""
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2], prev[3]
+
+
+def unfuse(model):
+    """`model` decoding layer by layer from its plain sampler (no kernel
+    with atomics in its backward); returns it."""
+    model.implicit_function.fuse_decode = "off"
+    model.implicit_function.collapse_density = "off"
+    return model
+
+
+def build_hydrant(cfg):
+    from holo_diffusion_torch.config import model_args_from_config
+    from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
+
+    return HoloDiffusionModel(**model_args_from_config(cfg))
+
+
 def main():
     import torch
 
@@ -2326,6 +2693,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     quality_phase(here, dev, results)
+
+    # ---- compact sources, packed transfer, NCCL and torchrun, on the CO3D tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    scale_out_phase(here, dev, results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)

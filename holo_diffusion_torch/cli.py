@@ -8,6 +8,11 @@ Train (resumes from the last checkpoint in exp_dir when run again):
     python -m holo_diffusion_torch.cli train --config-name synthetic_debug.yaml \\
         --max-epochs 3 exp_dir=./out seed=7 [--device cpu]
 
+Train data parallel on N GPUs of one node (one process a GPU over NCCL;
+`--no-mesh` trains each rank alone; with `--device cpu` the ranks use gloo):
+
+    torchrun --nproc_per_node N -m holo_diffusion_torch.cli train --config-name hydrant exp_dir=./out
+
 Evaluate a trained exp_dir's checkpoint instead of training (novel-view
 metrics dumped to exp_dir/eval_results_epoch_*.json; `eval_use_ema=true`
 evaluates through the EMA of the parameters):
@@ -51,6 +56,7 @@ import sys
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import yaml
 
 from .config import load_config, model_args_from_config
@@ -58,6 +64,7 @@ from .device import resolve_device, set_full_precision
 from .evaluate_samples import evaluate_samples
 from .experiment import Experiment
 from .models.holo_model import HoloDiffusionModel
+from .parallel import launch
 from .utils.checkpoint_utils import load_experiment
 from .utils.flyaround import render_flyaround
 from .sampling import sample_random_voxel_features
@@ -67,20 +74,27 @@ from .weights import init_weights, load_weights
 def train_main(argv: Optional[List[str]] = None):
     """Train (or resume) the experiment a config describes; returns
     (state, stats), or the evaluation's results when the config sets
-    `training_loop_ImplicitronTrainingLoop_args.eval_only`."""
+    `training_loop_ImplicitronTrainingLoop_args.eval_only`. Under torchrun
+    it joins the process group first (and leaves it at the end) and trains
+    data parallel over its ranks, unless `--no-mesh`."""
     parser = argparse.ArgumentParser(description="Train the port's HoloDiffusion model.")
     parser.add_argument("--config-name", default="base.yaml")
     parser.add_argument("--config-dir", default=None)
     parser.add_argument("--max-epochs", type=int, default=None)
     parser.add_argument("--no-mesh", action="store_true",
-                        help="accepted for the JAX CLI's sake; training here is single-device")
+                        help="train each rank alone, without data parallelism across the launched ranks")
     parser.add_argument("--device", default=None, help="torch device (default: CUDA)")
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     set_full_precision()
     cfg = load_config(args.config_name, args.overrides, args.config_dir)
-    return Experiment(cfg, device=args.device).run(max_epochs=args.max_epochs)
+    owned = not launch.is_initialized() and launch.initialize_distributed(args.device)
+    try:
+        return Experiment(cfg, device=args.device).run(max_epochs=args.max_epochs, use_mesh=not args.no_mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
 
 def build_model(
@@ -112,9 +126,13 @@ def _key_values(argv: Optional[List[str]]):
 
 def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, str]]:
     """Sample grids and render a fly-around of each; returns {sample name:
-    {stream: video path}}. With exp_dir= the options and defaults are the
-    JAX CLI's (3 samples at 256^2); config=/weights= keeps the port's own
-    (1 sample at the config's render size)."""
+    {stream: video path}} of the samples this process rendered. With
+    exp_dir= the options and defaults are the JAX CLI's (3 samples at
+    256^2); config=/weights= keeps the port's own (1 sample at the config's
+    render size). Under torchrun each rank samples and renders its share:
+    `sample_batch_size` 0 becomes min(num_samples, ranks), rank r samples
+    the grids r, r + ranks, ... of every batch, and each sample is written
+    by one rank."""
     logging.basicConfig(level=logging.INFO)
     opts, overrides = _key_values(argv)
     exp_dir = opts.pop("exp_dir", None)
@@ -137,63 +155,81 @@ def generate_samples_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[st
     save_voxel_features = bool(opts.pop("save_voxel_features", False))
     # sample through the EMA of the parameters (a run trained with ema_rate > 0)
     use_ema = bool(opts.pop("use_ema", False))
-    # > 1: that many grids in one sampling call, then rendered one at a
-    # time (the JAX CLI's batch over a mesh of one device)
+    # > 1: that many grids a batch, each rank sampling its share in one
+    # call, then rendered one at a time (the JAX CLI's batch over a mesh)
     sample_batch_size = int(opts.pop("sample_batch_size", 0))
     # evaluation-only occupancy skip for the fly-around renders
     empty_space_skip = bool(opts.pop("empty_space_skip", False))
-    device = resolve_device(opts.pop("device", None))
+    device_arg = opts.pop("device", None)
+    device = resolve_device(device_arg)
     if opts:
         raise ValueError(f"unknown args: {list(opts)}")
     if use_ema and exp_dir is None:
         raise ValueError("use_ema needs exp_dir= (the EMA lives in a training checkpoint)")
 
     set_full_precision()
-    if exp_dir is not None:
-        model = load_experiment(exp_dir, overrides, render_size, use_ema=use_ema, device=device)[1].model
-    else:
-        model = build_model(config or "hydrant", overrides, render_size)
-        if weights:
-            load_weights(model, weights)
+    owned = not launch.is_initialized() and launch.initialize_distributed(device_arg)
+    try:
+        # under torchrun, the card of this rank
+        device = resolve_device(device_arg)
+        rank, world = launch.rank(), launch.world_size()
+        if sample_batch_size == 0 and progressive <= 0 and world > 1:
+            sample_batch_size = min(num_samples, world)
+        if exp_dir is not None:
+            model = load_experiment(exp_dir, overrides, render_size, use_ema=use_ema, device=device)[1].model
         else:
-            init_weights(model, seed)
-    if not (model.net_3d_enabled and model.diffusion_enabled):
-        raise ValueError("generate_samples needs a diffusion model (generate_samples.py:90-92 in the reference)")
-    model.to(device).eval()
+            model = build_model(config or "hydrant", overrides, render_size)
+            if weights:
+                load_weights(model, weights)
+            else:
+                init_weights(model, seed)
+        if not (model.net_3d_enabled and model.diffusion_enabled):
+            raise ValueError("generate_samples needs a diffusion model (generate_samples.py:90-92 in the reference)")
+        model.to(device).eval()
 
-    def generator(s):
-        return torch.Generator(device=device).manual_seed(s)
+        def generator(s):
+            return torch.Generator(device=device).manual_seed(s)
 
-    grids = {}
-    if sample_batch_size > 1 and progressive <= 0:
-        for start in range(0, num_samples, sample_batch_size):
-            # a whole batch even at the tail, as the JAX CLI pads it
-            batch = sample_random_voxel_features(
-                model, generator(seed + start), max_iter=max_iter, use_ddim=use_ddim,
-                n_samples=sample_batch_size, device=device)
-            for j in range(min(sample_batch_size, num_samples - start)):
-                grids[start + j] = batch[j:j + 1]
+        grids, mine = {}, [i for i in range(num_samples) if i % world == rank]
+        if sample_batch_size > 1 and progressive <= 0:
+            mine = []
+            for start in range(0, num_samples, sample_batch_size):
+                # this rank's share of a whole batch, even at the tail, as the
+                # JAX CLI pads it; one rank alone samples the batch as it was
+                share = list(range(rank, sample_batch_size, world))
+                if not share:
+                    continue
+                batch = sample_random_voxel_features(
+                    model, generator(seed + start + 10000 * rank), max_iter=max_iter, use_ddim=use_ddim,
+                    n_samples=len(share), device=device)
+                for row, j in enumerate(share):
+                    if start + j < num_samples:
+                        grids[start + j] = batch[row:row + 1]
+                        mine.append(start + j)
 
-    results = {}
-    for i in range(num_samples):
-        name = f"sample_{i:05d}"
-        results[name] = render_flyaround(
-            model,
-            os.path.join(output_directory, name),
-            n_flyaround_poses=n_flyaround_poses,
-            trajectory_distance=trajectory_distance,
-            generator=generator(seed + i),
-            progressive_sampling_steps_per_render=progressive,
-            video_fps=video_fps,
-            save_voxel_features=save_voxel_features,
-            voxel_features=grids.get(i),
-            sample_use_ddim=use_ddim,
-            sample_max_iter=max_iter,
-            empty_space_skip=empty_space_skip,
-            device=device,
-        )
-        logging.info("%s: %s", name, results[name])
-    return results
+        results = {}
+        for i in mine:
+            name = f"sample_{i:05d}"
+            results[name] = render_flyaround(
+                model,
+                os.path.join(output_directory, name),
+                n_flyaround_poses=n_flyaround_poses,
+                trajectory_distance=trajectory_distance,
+                generator=generator(seed + i),
+                progressive_sampling_steps_per_render=progressive,
+                video_fps=video_fps,
+                save_voxel_features=save_voxel_features,
+                voxel_features=grids.get(i),
+                sample_use_ddim=use_ddim,
+                sample_max_iter=max_iter,
+                empty_space_skip=empty_space_skip,
+                device=device,
+            )
+            logging.info("%s: %s", name, results[name])
+        return results
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
 
 def visualize_reconstruction_main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, str]]:

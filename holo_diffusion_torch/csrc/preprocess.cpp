@@ -1,10 +1,11 @@
 // Host code of the CO3D loader (data/co3d.py, native/__init__.py): crop +
-// bilinear resize of uint8 frames, the tight mask box, and PNG row
-// unfiltering (data/image_io.py).
+// bilinear resize of uint8 frames, the compact-source composite + resize
+// (data/compact.py), the tight mask box, and PNG row unfiltering
+// (data/image_io.py).
 //
-// A copy of holo_diffusion_tpu/native/csrc/preprocess.cpp (the crop/resize
-// and mask-box functions are unchanged, so both give the same bits), without
-// its compact-source kernel, plus hd_png_unfilter. Plain C ABI, loaded with
+// A copy of holo_diffusion_tpu/native/csrc/preprocess.cpp (the crop/resize,
+// compact-source and mask-box functions are unchanged, so both give the same
+// bits), plus hd_png_unfilter. Plain C ABI, loaded with
 // ctypes; built by ops/_build.py with
 //   g++ -O3 -shared -fPIC -std=c++17 -pthread
 // ctypes releases the interpreter lock around every call, so the loader's
@@ -60,6 +61,57 @@ void crop_resize_one(const uint8_t* src, int H, int W, int C, int x0, int y0,
         dst[(oy * outW + ox) * C + c] =
             sample_bilinear(src, H, W, C, fy, fx, c) * scale;
       }
+    }
+  }
+}
+
+// Compact-source kernel (data/compact.py): fg-threshold composite onto
+// bg_color applied to each of the 4 bilinear corner reads — i.e. EXACTLY
+// mask-at-full-res-then-resize (the reference preprocess order,
+// holo_diffusion_model preprocessing -> extractor rescale) in ONE pass with
+// no full-res intermediate (numpy `where` over 33x800^2x3 costs seconds on a
+// 1-core host; this runs in ~60 ms). Outputs uint8 (round-to-nearest).
+void compact_source_one(const uint8_t* img, const uint8_t* fg, int H, int W,
+                        int C, uint8_t* dimg, uint8_t* dfg, int outH,
+                        int outW, float thr255, const float* bg255,
+                        int mask_images) {
+  const float sx = static_cast<float>(W) / outW;
+  const float sy = static_cast<float>(H) / outH;
+  for (int oy = 0; oy < outH; ++oy) {
+    const float fy = (oy + 0.5f) * sy - 0.5f;
+    const int y0 = static_cast<int>(std::floor(fy));
+    const float wy = fy - y0;
+    for (int ox = 0; ox < outW; ++ox) {
+      const float fx = (ox + 0.5f) * sx - 0.5f;
+      const int x0 = static_cast<int>(std::floor(fx));
+      const float wx = fx - x0;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};  // C <= 4
+      float accfg = 0.f;
+      for (int dy = 0; dy < 2; ++dy) {
+        const int yi = y0 + dy;
+        if (yi < 0 || yi >= H) continue;
+        const float wyv = dy ? wy : 1.f - wy;
+        for (int dx = 0; dx < 2; ++dx) {
+          const int xi = x0 + dx;
+          if (xi < 0 || xi >= W) continue;
+          const float w = wyv * (dx ? wx : 1.f - wx);
+          const uint8_t* p = img + (static_cast<size_t>(yi) * W + xi) * C;
+          const bool in_fg = !fg || fg[static_cast<size_t>(yi) * W + xi] > thr255;
+          if (mask_images && !in_fg) {
+            for (int c = 0; c < C; ++c) acc[c] += w * bg255[c];
+          } else {
+            for (int c = 0; c < C; ++c) acc[c] += w * p[c];
+          }
+          if (in_fg && fg) accfg += w * 255.f;
+        }
+      }
+      uint8_t* o = dimg + (static_cast<size_t>(oy) * outW + ox) * C;
+      for (int c = 0; c < C; ++c)
+        o[c] = static_cast<uint8_t>(
+            std::min(255.f, std::max(0.f, std::nearbyint(acc[c]))));
+      if (dfg)
+        dfg[static_cast<size_t>(oy) * outW + ox] = static_cast<uint8_t>(
+            std::min(255.f, std::max(0.f, std::nearbyint(accfg))));
     }
   }
 }
@@ -120,6 +172,40 @@ void hd_crop_resize_batch_u8(const uint8_t** srcs, const int* HWs,
       crop_resize_one(srcs[i], H, W, C, b[0], b[1], b[2], b[3],
                       dst + static_cast<size_t>(i) * outH * outW * C, outH,
                       outW, scale);
+    }
+  };
+  if (n_threads <= 1 || N == 1) {
+    worker();
+    return;
+  }
+  std::vector<std::thread> pool;
+  const int nt = std::min(n_threads, N);
+  pool.reserve(nt);
+  for (int t = 0; t < nt; ++t) pool.emplace_back(worker);
+  for (auto& th : pool) th.join();
+}
+
+// Batch compact-source preprocess: per-frame composite+resize (see
+// compact_source_one). imgs: N pointers to (H, W, C) u8; fgs: N pointers to
+// (H, W) u8 masks or nullptr (then no masking and fg_dst untouched).
+// img_dst: (N, outH, outW, C) u8; fg_dst: (N, outH, outW) u8 or nullptr.
+void hd_compact_source_batch_u8(const uint8_t** imgs, const uint8_t** fgs,
+                                const int* HWs, int N, int C,
+                                uint8_t* img_dst, uint8_t* fg_dst, int outH,
+                                int outW, float thr255, const float* bg255,
+                                int mask_images, int n_threads) {
+  std::atomic<int> next(0);
+  auto worker = [&]() {
+    while (true) {
+      int i = next.fetch_add(1);
+      if (i >= N) break;
+      const int H = HWs[2 * i];
+      const int W = HWs[2 * i + 1];
+      compact_source_one(
+          imgs[i], fgs ? fgs[i] : nullptr, H, W, C,
+          img_dst + static_cast<size_t>(i) * outH * outW * C,
+          fg_dst ? fg_dst + static_cast<size_t>(i) * outH * outW : nullptr,
+          outH, outW, thr255, bg255, mask_images);
     }
   };
   if (n_threads <= 1 || N == 1) {

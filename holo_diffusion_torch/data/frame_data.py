@@ -1,8 +1,14 @@
 """FrameData, the batch the model takes (port of
-holo_diffusion_tpu/data/frame_data.py, non-compact batches): one scene's
-frames, channels-last images. Images and masks are float32 in [0, 1] or
-uint8, depths float32 or float16 (the CO3D cache's dtypes); the model
-converts them on the device (models/metrics.py:as_unit_float)."""
+holo_diffusion_tpu/data/frame_data.py): one scene's frames, channels-last
+images. Images and masks are float32 in [0, 1] or uint8, depths float32 or
+float16 (the CO3D cache's dtypes); the model converts them on the device
+(models/metrics.py:as_unit_float).
+
+A compact batch (data/compact.py) sets the `src_*` fields: `image_rgb`,
+`fg_probability`, `mask_crop` and `depth_map` then hold only the render
+targets at full resolution, the `src_*` fields the pooling sources, already
+masked and resized to the feature extractor's input (uint8), and `camera`
+covers the targets, then the sources."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,6 +27,9 @@ class FrameData:
     mask_crop: Optional[torch.Tensor] = None  # (B, H, W, 1)
     depth_map: Optional[torch.Tensor] = None  # (B, H, W, 1)
     sequence_id: Optional[torch.Tensor] = None  # (B,) int
+    src_image_rgb: Optional[torch.Tensor] = None  # (S, h, w, 3) uint8
+    src_fg_probability: Optional[torch.Tensor] = None  # (S, h, w, 1) uint8
+    src_mask_crop: Optional[torch.Tensor] = None  # (S, h, w, 1) uint8
 
     @property
     def batch_size(self) -> int:
@@ -47,7 +56,13 @@ class FrameData:
         return self._map(lambda x: x.pin_memory())
 
     def __getitem__(self, idx) -> "FrameData":
-        """The frames `idx` (an index tensor or a slice) of every field."""
+        """The frames `idx` (an index tensor or a slice) of every field.
+        A compact batch cannot be indexed so: its targets and sources have
+        different leading sizes (`data/compact.py:CompactSceneSampler`
+        selects their frames apart)."""
+        if self.src_image_rgb is not None:
+            raise ValueError("cannot index the frames of a compact batch: targets and sources have "
+                             "different leading sizes")
         return FrameData(self.camera[idx], *(
             None if getattr(self, f.name) is None else getattr(self, f.name)[idx]
             for f in dataclasses.fields(self)[1:]))

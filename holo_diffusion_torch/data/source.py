@@ -92,6 +92,42 @@ def epoch_loader(
         yield dataset.sample_batch(rng, batch_size)
 
 
+def device_batched_loader(
+    dataset: SceneDataset,
+    batch_size: int,
+    n_batches: int,
+    seed: int,
+    n_devices: int,
+    process_index: int = 0,
+    process_count: int = 1,
+    transform: Optional[Callable[[FrameData], FrameData]] = None,
+) -> Iterator:
+    """The batches of this process's devices for data-parallel training
+    (one scene a device). Device d of the `n_devices` in all draws batch b
+    from `np.random.RandomState(SeedSequence((seed, b, d)))`, as JAX's
+    loader does, so every process agrees on the global batch without
+    building it; this process holds the contiguous block of devices
+    `process_index * local ...` with local = n_devices // process_count.
+    `transform` (such as a SourceCompactor) applies to each device's batch
+    first. With one device a process (the port's launch: one process a
+    GPU) each item is that device's FrameData; with more, the list of them
+    (the port stacks nothing across devices)."""
+    if n_devices % process_count:
+        raise ValueError(f"{n_devices} devices do not split over {process_count} processes")
+    local = n_devices // process_count
+    first = process_index * local
+    for b in range(n_batches):
+        batches = [
+            dataset.sample_batch(
+                np.random.RandomState(np.random.SeedSequence((seed, b, first + d)).generate_state(1)[0]),
+                batch_size)
+            for d in range(local)
+        ]
+        if transform is not None:
+            batches = [transform(x) for x in batches]
+        yield batches[0] if local == 1 else batches
+
+
 class AsyncLoader:
     """Iterates `iterator` in a background thread, `prefetch` items ahead.
     `transfer` (such as `lambda b: b.to(device, non_blocking=True)`) is

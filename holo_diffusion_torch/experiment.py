@@ -1,14 +1,24 @@
 """Experiment: config -> model, optimizer, data and the training loop (port
 of holo_diffusion_tpu/experiment.py; reference experiment.py:108-290 and
-trainer/training_loop.py:47-712), in one process on one device.
+trainer/training_loop.py:47-712), in one process, or data parallel in one
+process a GPU under torchrun (parallel/launch.py).
 
     exp = Experiment(load_config("synthetic_debug.yaml"), device="cpu")
     state, stats = exp.run(max_epochs=3)
 
-Every epoch reseeds numpy and `random` with seed + epoch and draws the
-step's random values from `torch.Generator(device).manual_seed(seed +
-epoch)`, so an epoch run after a resume draws what it draws in an
-uninterrupted run. `run` resumes from the last checkpoint in `exp_dir` by
+Every epoch reseeds numpy and `random` with seed + epoch + 10000 * rank
+and draws the step's random values from `torch.Generator(device).
+manual_seed(seed + epoch + 10000 * rank)`, so an epoch run after a resume
+draws what it draws in an uninterrupted run. The per-rank offset is the
+reference's (experiment.py:167); JAX folds the device index into its key
+instead, which torch cannot reproduce, and rank 0 (a single process) keeps
+the stream it had without it. With a process group of more than one rank
+(and `use_mesh`) each rank trains on its own scene and the ranks average
+their gradients (parallel/train_step.py); rank 0 alone writes checkpoints,
+stats, plots and visuals, and the ranks meet after each save. With
+`compact_sources` the pooling sources are masked and resized on the host
+(data/compact.py), with `packed_transfer` each batch is copied as one
+buffer (data/packing.py). `run` resumes from the last checkpoint in `exp_dir` by
 default; with `steps_per_dispatch` K it groups K batches per call of the
 train step; with `eval_only` it evaluates the checkpoint instead
 (`run_eval_only`, with LPIPS when `lpips_vgg_weights_path` is set), and
@@ -41,8 +51,10 @@ from .config import (
     training_loop_args_from_config,
 )
 from .data.co3d import CO3DDataProvider
+from .data.compact import CompactSceneSampler, SourceCompactor
 from .data.frame_data import FrameData
-from .data.source import AsyncLoader, SyntheticDataProvider, WholeDatasetLoader, epoch_loader
+from .data.packing import BatchPacker, packed_transfer
+from .data.source import AsyncLoader, SyntheticDataProvider, WholeDatasetLoader, device_batched_loader, epoch_loader
 from .device import DeviceLike, resolve_device
 from .evaluation import evaluate_new_view_synthesis
 from .models.diffusion import LossSecondMomentState
@@ -50,6 +62,8 @@ from .models.holo_model import HoloDiffusionModel
 from .models.lpips import load_lpips_from_torch_files
 from .models.metrics import preprocess_input
 from .ops.image import resize_bilinear_antialiased
+from .parallel import launch
+from .parallel.mesh import make_mesh, replicate
 from .parallel.train_step import TrainState, make_eval_step, make_train_step
 from .render_eval import render_image_chunked
 from .train.checkpoint import restore_checkpoint, save_checkpoint
@@ -75,18 +89,6 @@ def seed_all_random_engines(seed: int):
     random.seed(seed)
 
 
-def _check_ported(cfg) -> None:
-    """Raise for each feature the config asks for that the port lacks,
-    naming the ROADMAP.md §1 item that ports it."""
-    unported = [
-        (bool(cfg.get("compact_sources", False)), "compact_sources", 1),
-        (bool(cfg.get("packed_transfer", False)), "packed_transfer", 1),
-    ]
-    for asked, what, item in unported:
-        if asked:
-            raise NotImplementedError(f"{what}: not ported yet (ROADMAP.md §1 item {item})")
-
-
 def _host_floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """Scalar device tensors -> host floats, in one copy."""
     if not metrics:
@@ -107,7 +109,6 @@ class Experiment:
         self.data_args = data_source_args_from_config(cfg)
         ds_cfg = cfg.get("data_source_ImplicitronDataSource_args", {})
         provider = ds_cfg.get("dataset_map_provider_class_type", "JsonIndexDatasetMapProviderV2")
-        _check_ported(cfg)
         seed_all_random_engines(self.seed)
         if cfg.get("detect_anomaly", False):
             enable_anomaly_detection()
@@ -128,6 +129,49 @@ class Experiment:
         self.ema_rate = float(cfg.get("ema_rate", 0.0))
         # optimizer steps per call of the train step
         self.steps_per_dispatch = max(1, int(cfg.get("steps_per_dispatch", 1)))
+        self.compactor = self._build_compactor()
+        self._train_data = self._val_data = None
+
+    def _build_compactor(self) -> Optional[SourceCompactor]:
+        """The host compaction of the pooling sources (`compact_sources`),
+        dropping the target depths when no depth term weighs in the
+        objective (`compact_drop_depth: auto`)."""
+        if not self.cfg.get("compact_sources", False):
+            return None
+        drop_depth = self.cfg.get("compact_drop_depth", "auto")
+        if drop_depth == "auto":
+            drop_depth = not any("depth" in k and w != 0.0 for k, w in self.model.loss_weights.items())
+        return SourceCompactor.from_model(self.model, drop_depth=bool(drop_depth),
+                                          host_resize=self.cfg.get("compact_host_resize", "native"))
+
+    def _make_packer(self, mesh=None) -> Optional[BatchPacker]:
+        """The packer of `packed_transfer`: none under a mesh (each rank
+        copies its own batch, as in JAX), and none with
+        `whole_dataset_batch`, whose one batch is on the device already."""
+        if not self.cfg.get("packed_transfer", False) or mesh is not None:
+            return None
+        if self.loop_args["whole_dataset_batch"]:
+            logger.warning("packed_transfer ignored with whole_dataset_batch (the replayed batch is already "
+                           "on the device)")
+            return None
+        return BatchPacker()
+
+    def _compact_train_data(self):
+        """The training batches' source: with compact sources and the scene
+        cache (`compact_scene_cache`, default on) a `CompactSceneSampler`,
+        built once so its cache lasts across epochs; and with `compact_val`
+        (default on) one for the validation batches, which split 1 target +
+        (B-1) sources. Otherwise the train split (compacted batch by batch
+        when compaction is on)."""
+        comp = self.compactor
+        if comp is None or not self.cfg.get("compact_scene_cache", True):
+            return self.data.train
+        n_cached = int(self.cfg.get("compact_cached_scenes", 4))
+        if self.cfg.get("compact_val", True):
+            val_comp = SourceCompactor(1, comp.image_rescale, comp.mask_images, comp.mask_threshold, comp.bg_color,
+                                       drop_depth=comp.drop_depth, host_resize=comp.host_resize)
+            self._val_data = CompactSceneSampler(self.data.val, val_comp, max_cached_scenes=n_cached)
+        return CompactSceneSampler(self.data.train, comp, max_cached_scenes=n_cached)
 
     def _build_data_source(self, ds_cfg: dict, provider: str):
         """The synthetic scenes (made on the device) or CO3Dv2 (cached on
@@ -224,7 +268,8 @@ class Experiment:
             difficulty_bin_breaks=tuple(ev.get("camera_difficulty_bin_breaks", (0.97, 0.98))),
             perceptual_fn=perceptual_fn,
             eval_batches=eval_batches,
-            dump_path=os.path.join(self.exp_dir, f"eval_results_epoch_{max(epoch, 0):08d}.json"),
+            dump_path=(os.path.join(self.exp_dir, f"eval_results_epoch_{max(epoch, 0):08d}.json")
+                       if launch.is_main_process() else None),
             device=self.device,
             timings=timings,
         )
@@ -269,7 +314,8 @@ class Experiment:
         # stratified points), apart from the training draws
         generator = torch.Generator(device=self.device).manual_seed(self.seed + epoch)
         out = None
-        for batch in epoch_loader(self.data.val, self.batch_size, self.n_batches_val, self.seed + epoch):
+        val_data = self._val_data or self.data.val
+        for batch in epoch_loader(val_data, self.batch_size, self.n_batches_val, self.seed + epoch):
             batch = self._to_device(batch)
             out = self._eval_batch_chunked(state, batch) if use_chunked else eval_step(state, batch, generator)
             stats.update(_host_floats({k: v for k, v in out.items() if v.ndim == 0}), "val")
@@ -278,17 +324,23 @@ class Experiment:
     @torch.no_grad()
     def _eval_batch_chunked(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         """The EVALUATION forward of one batch through the chunked renderer:
-        encode a grid from the source frames (1:), render target frame 0
-        densely, score it against the preprocessed target resized to the
-        render size."""
+        encode a grid from the source frames (1:, or a compact batch's
+        sources), render target frame 0 densely, score it against the
+        preprocessed target resized to the render size."""
         model = state.model
-        src = slice(1, None) if batch.batch_size > 1 else slice(0, None)
 
         def part(x, s):
             return None if x is None else x[s]
 
-        grid = model.encode_eval(batch.camera[src], batch.image_rgb[src],
-                                 part(batch.fg_probability, src), part(batch.mask_crop, src))
+        if batch.src_image_rgb is not None:
+            # compact: the camera covers the targets, then the sources,
+            # which come masked and resized already
+            grid = model.encode_eval(batch.camera[batch.image_rgb.shape[0]:], batch.src_image_rgb,
+                                     batch.src_fg_probability, batch.src_mask_crop, prerescaled=True)
+        else:
+            src = slice(1, None) if batch.batch_size > 1 else slice(0, None)
+            grid = model.encode_eval(batch.camera[src], batch.image_rgb[src],
+                                     part(batch.fg_probability, src), part(batch.mask_crop, src))
         out = render_image_chunked(model, batch.camera[:1], grid, device=self.device)
         gt, fg, _ = preprocess_input(batch.image_rgb[:1], part(batch.fg_probability, slice(0, 1)), None,
                                      model.mask_images, model.mask_depths, model.mask_threshold,
@@ -332,16 +384,31 @@ class Experiment:
                                device=self.device)
         logger.info("denoising video %s in %.3f s", path, time.perf_counter() - t0)
 
-    def run(self, max_epochs: Optional[int] = None):
+    def run(self, max_epochs: Optional[int] = None, use_mesh: bool = True):
         """Train from the last checkpoint in `exp_dir` (unless `resume` is
         off) up to `max_epochs` (the config's when None); each epoch ends
         with a validation epoch (when on), a test evaluation (when on and
-        due), its stats and a checkpoint. Returns (state, stats); with
-        `eval_only` the results of `run_eval_only` instead."""
+        due), its stats and a checkpoint. With a process group of more than
+        one rank and `use_mesh`, data parallel over its ranks: an epoch's
+        n_batches_train steps are split over them. Returns (state, stats);
+        with `eval_only` the results of `run_eval_only` instead."""
+        main = launch.is_main_process()
         os.makedirs(self.exp_dir, exist_ok=True)
-        dump_expconfig(self.cfg, self.exp_dir)
+        if main:
+            dump_expconfig(self.cfg, self.exp_dir)
         if self.loop_args["eval_only"]:
             return self.run_eval_only()
+        rank, world = launch.rank(), launch.world_size()
+        mesh = make_mesh(self.device) if use_mesh and world > 1 else None
+        n_dev = mesh.world_size if mesh is not None else 1
+        whole = self.loop_args["whole_dataset_batch"]
+        if whole and mesh is not None:
+            raise NotImplementedError("whole_dataset_batch replays one batch on one device; run with --no-mesh")
+        # kept, so that a caller can read the compact scene cache's hits
+        train_data = self._train_data = self._compact_train_data()
+        # compacted batch by batch unless the scene cache compacts them
+        per_batch_compactor = self.compactor if train_data is self.data.train else None
+        packer = self._make_packer(mesh)
         state = self.init_state()
         stats = Stats.load_or_new(os.path.join(self.exp_dir, "train_stats.json"),
                                   log_vars=_model_cfg_log_vars(self.cfg))
@@ -350,10 +417,12 @@ class Experiment:
         if restored is not None:
             state, start_epoch = restored, ep + 1
             logger.info("resumed from epoch %d", ep)
+        if mesh is not None:
+            state = replicate(state, mesh)
 
         k = self.steps_per_dispatch
         train_step = make_train_step(self.model, state.optimizer, schedule_sampler=self.schedule_sampler,
-                                     ema_rate=self.ema_rate, steps_per_call=k)
+                                     ema_rate=self.ema_rate, steps_per_call=k, mesh=mesh, packer=packer)
         eval_step = make_eval_step(self.model)
         max_epochs = max_epochs or self.loop_args["max_epochs"]
         print_interval = self.loop_args["metric_print_interval"]
@@ -361,18 +430,26 @@ class Experiment:
         test_interval = self.loop_args["test_interval"]
         vis_interval = self.loop_args["visualize_interval"]
         testing = not self.cfg.get("disable_testing", True)
-        # calls of the train step an epoch, each of k optimizer steps
-        n_calls = max(1, self.n_batches_train // k)
+        # calls of the train step an epoch on each rank, each of k optimizer steps
+        n_calls = max(1, self.n_batches_train // (n_dev * k))
+        transfer = self._to_device if packer is None else packed_transfer(packer, self.device)
         stats.epoch = start_epoch - 1
 
         for epoch in range(start_epoch, max_epochs):
-            seed_all_random_engines(self.seed + epoch)
+            # the reference's per-rank offset (experiment.py:167)
+            seed_all_random_engines(self.seed + epoch + 10000 * rank)
             stats.new_epoch()
-            generator = torch.Generator(device=self.device).manual_seed(self.seed + epoch)
-            if self.loop_args["whole_dataset_batch"]:
+            generator = torch.Generator(device=self.device).manual_seed(self.seed + epoch + 10000 * rank)
+            if whole:
                 loader = WholeDatasetLoader(self.data.train, self.batch_size, n_calls * k, self.seed)
+            elif mesh is not None:
+                loader = device_batched_loader(train_data, self.batch_size, n_calls * k, self.seed + epoch, n_dev,
+                                               process_index=mesh.rank, process_count=n_dev,
+                                               transform=per_batch_compactor)
             else:
-                loader = epoch_loader(self.data.train, self.batch_size, n_calls * k, self.seed + epoch)
+                loader = epoch_loader(train_data, self.batch_size, n_calls * k, self.seed + epoch)
+                if per_batch_compactor is not None:
+                    loader = map(per_batch_compactor, loader)
 
             # Step N's metrics are read after step N+1 is launched, so the
             # host does not wait for the device between steps; a status
@@ -386,9 +463,9 @@ class Experiment:
             # training_loop.profile: a trace of the first epoch's dispatches
             # 1..profile_steps (dispatch 0 warms the caches up)
             profiler = (SteadyStateProfiler(os.path.join(self.exp_dir, "traces"), self.loop_args["profile_steps"])
-                        if self.loop_args["profile"] and epoch == start_epoch else None)
+                        if self.loop_args["profile"] and epoch == start_epoch and main else None)
             self.model.train()
-            for it, batch in enumerate(AsyncLoader(self._group_steps(loader), transfer=self._to_device)):
+            for it, batch in enumerate(AsyncLoader(self._group_steps(loader), transfer=transfer)):
                 if profiler is not None:
                     profiler.before_dispatch(it)
                 state, metrics = train_step(state, batch, generator)
@@ -408,15 +485,15 @@ class Experiment:
                 self.model.eval()
                 out = self._val_epoch(state, stats, eval_step, epoch)
                 logger.info(stats.status_line("val"))
-                if vis_interval and epoch % vis_interval == 0:
+                if vis_interval and epoch % vis_interval == 0 and main:
                     self._visualize(state.model, out, epoch)
 
-            if testing and test_interval > 0 and epoch % test_interval == 0:
+            if testing and test_interval > 0 and epoch % test_interval == 0 and main:
                 res = self._test_eval(state, f"eval_epoch_{epoch:08d}.json")
                 logger.info("test eval @ %d: %s", epoch, res["overall"])
 
             stats.finalize_epoch()
-            if self.loop_args["store_checkpoints"]:
+            if self.loop_args["store_checkpoints"] and main:
                 save_checkpoint(self.exp_dir, epoch, state, stats,
                                 purge=self.loop_args["store_checkpoints_purge"])
                 t0 = time.perf_counter()
@@ -428,6 +505,8 @@ class Experiment:
                     if not (e.name or "").startswith("matplotlib"):
                         raise
                     logger.warning("stats plot failed: %s", e)
-        if testing and self.loop_args["test_when_finished"]:
+            # every rank resumes from what rank 0 wrote
+            launch.barrier()
+        if testing and self.loop_args["test_when_finished"] and main:
             self._test_eval(state, "eval_final.json")
         return state, stats

@@ -672,17 +672,23 @@ def loss_aware_update(
     mask: Optional[Sequence[bool]] = None,
 ) -> LossSecondMomentState:
     """The state with each (t, loss) pair appended to t's history in order
-    (the oldest entry shifted out of a full history). `mask` holds host
-    booleans, one per pair; a pair whose mask is False is skipped (the
-    bootstrap timestep's credit, gated on the bootstrap coin, which the
-    step reads on the host). Device tensor operations only."""
+    (the oldest entry shifted out of a full history). `mask`, one per pair,
+    holds host booleans (a sequence or a CPU tensor), and a pair whose mask
+    is False is skipped (the bootstrap timestep's credit, gated on the
+    bootstrap coin, which the step reads on the host); a bool tensor on the
+    card gates each pair's update on the card instead (the ranks' gathered
+    flags, parallel/collectives.py), so nothing is read on the host. Device
+    tensor operations only."""
     hist, counts = state.loss_history.clone(), state.loss_counts.clone()
     H = hist.shape[1]
-    valid = [True] * len(ts) if mask is None else [bool(m) for m in mask]
+    if isinstance(mask, torch.Tensor) and mask.device.type != "cpu":
+        valid = list(mask.to(dtype=torch.bool).reshape(-1).unbind())
+    else:
+        valid = [True] * len(ts) if mask is None else [bool(m) for m in mask]
     if len(valid) != len(ts):
         raise ValueError(f"mask has {len(valid)} entries for {len(ts)} timesteps")
     for i, ok in enumerate(valid):
-        if not ok:
+        if ok is False:
             continue
         t = ts[i:i + 1].to(device=hist.device, dtype=torch.long)
         loss = losses[i:i + 1].to(device=hist.device, dtype=hist.dtype)[:, None]
@@ -690,8 +696,11 @@ def loss_aware_update(
         row = hist[t]
         shifted = torch.cat([row[:, 1:], loss], dim=1)
         appended = row.scatter(1, torch.clamp(cnt, max=H - 1)[:, None], loss)
-        hist[t] = torch.where((cnt == H)[:, None], shifted, appended)
-        counts[t] = torch.clamp(cnt + 1, max=H)
+        new_row, new_cnt = torch.where((cnt == H)[:, None], shifted, appended), torch.clamp(cnt + 1, max=H)
+        if ok is not True:  # a device flag
+            new_row, new_cnt = torch.where(ok, new_row, row), torch.where(ok, new_cnt, cnt)
+        hist[t] = new_row
+        counts[t] = new_cnt
     return LossSecondMomentState(loss_history=hist, loss_counts=counts)
 
 

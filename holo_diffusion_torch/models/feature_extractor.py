@@ -114,9 +114,12 @@ class ResNetFeatureExtractor(nn.Module):
         """Channels of the view sampler's concatenation of every entry."""
         return len(self.stages) * self.proj_dim + int(self.add_masks) + 3 * int(self.add_images)
 
-    def forward(self, images: torch.Tensor, masks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, masks: Optional[torch.Tensor] = None,
+                rescale_done: bool = False) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3) in [0, 1], masks (B, H, W, 1) -> {"images",
-        "masks", "res_layer_{i}"} of (B, h, w, c) maps."""
+        "masks", "res_layer_{i}"} of (B, h, w, c) maps. `rescale_done`: the
+        images come already resized by `image_rescale` (compact sources,
+        data/compact.py), so the resize is skipped."""
         B, H, W, _ = images.shape
         out: Dict[str, torch.Tensor] = {}
         if self.add_images:
@@ -124,7 +127,7 @@ class ResNetFeatureExtractor(nn.Module):
         if self.add_masks and masks is not None:
             out["masks"] = masks
         x = images
-        if self.image_rescale != 1.0:
+        if self.image_rescale != 1.0 and not rescale_done:
             x = resize_image(x, int(H * self.image_rescale), int(W * self.image_rescale))
         if self.normalize_image:
             x = (x - self._mean) / self._std

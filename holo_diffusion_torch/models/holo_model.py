@@ -5,7 +5,8 @@ on a given voxel grid.
 
 Random draws of the training forward come from `Draws` (random_draws.py):
 injected values, or an explicit `torch.Generator`. Batches are one scene's
-frames, targets first (non-compact batches only).
+frames, targets first; in a compact batch (data/compact.py) the sources come
+apart, already masked and resized on the host.
 """
 from __future__ import annotations
 
@@ -174,11 +175,15 @@ class HoloDiffusionModel(nn.Module):
         cameras: PerspectiveCameras,
         fg_probability: Optional[torch.Tensor] = None,
         mask_crop: Optional[torch.Tensor] = None,
+        prerescaled: bool = False,
     ) -> torch.Tensor:
         """Source views (S, H, W, 3), preprocessed, -> voxel grid
         (r, r, r, C) in [-1, 1]: extractor, view pooling at the voxel
-        centres, mapper, tanh."""
-        feats = self.image_feature_extractor(as_unit_float(image_rgb), as_unit_float(fg_probability))
+        centres, mapper, tanh. `prerescaled`: the views come at the
+        extractor's input resolution (compact sources), so its resize is
+        skipped."""
+        feats = self.image_feature_extractor(as_unit_float(image_rgb), as_unit_float(fg_probability),
+                                             rescale_done=prerescaled)
         pts = voxel_coord_grid(self.resol, self.volume_extent, device=image_rgb.device).reshape(-1, 3)
         pooled = self.view_pooler(feats, cameras, pts, as_unit_float(mask_crop))
         v = torch.tanh(self.pooled_feature_mapper(pooled))
@@ -227,13 +232,17 @@ class HoloDiffusionModel(nn.Module):
         image_rgb: torch.Tensor,
         fg_probability: Optional[torch.Tensor] = None,
         mask_crop: Optional[torch.Tensor] = None,
+        prerescaled: bool = False,
     ) -> torch.Tensor:
         """Preprocess + pool + evaluation denoise of SOURCE views ->
-        (r, r, r, C), for rendering one grid into many cameras."""
-        image_rgb, fg_probability, _ = preprocess_input(
-            image_rgb, fg_probability, None, self.mask_images, self.mask_depths,
-            self.mask_threshold, self.bg_color)
-        grid = self.pool_features(image_rgb, camera, fg_probability, mask_crop)
+        (r, r, r, C), for rendering one grid into many cameras. With
+        `prerescaled` the views are compact sources (masked and resized on
+        the host): no re-mask, no resize."""
+        if not prerescaled:
+            image_rgb, fg_probability, _ = preprocess_input(
+                image_rgb, fg_probability, None, self.mask_images, self.mask_depths,
+                self.mask_threshold, self.bg_color)
+        grid = self.pool_features(image_rgb, camera, fg_probability, mask_crop, prerescaled=prerescaled)
         return self.denoise(grid[None], training=False)[0][0]
 
     def query_density(self, voxel_grid: torch.Tensor, points_world: torch.Tensor) -> torch.Tensor:
@@ -339,11 +348,18 @@ class HoloDiffusionModel(nn.Module):
         training: bool = False,
         draws: Any = None,
         timesteps: Optional[torch.Tensor] = None,
+        src_image_rgb: Optional[torch.Tensor] = None,
+        src_fg_probability: Optional[torch.Tensor] = None,
+        src_mask_crop: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """The pipeline (holo_diffusion_model.py:201-540).
 
         image_rgb (B, H, W, 3) holds one scene's frames: the first
-        n_targets are render targets, the rest pooling sources. Without
+        n_targets are render targets, the rest pooling sources. With
+        `src_image_rgb` (a compact batch, data/compact.py) image_rgb holds
+        only the targets, the `src_*` hold the sources already masked and
+        resized on the host, and `camera` covers the targets, then the
+        sources. Without
         images, `voxel_features` (1, r, r, r, C) is rendered (serving).
         Training needs `draws`: a `torch.Generator`, a mapping of injected
         draws, or a `Draws`; so does evaluation with `mask_sample`, and
@@ -358,11 +374,18 @@ class HoloDiffusionModel(nn.Module):
             self.mask_threshold, self.bg_color)
         mask_crop = as_unit_float(mask_crop)
         B = camera.batch_size
-        if training:
+        compact = src_image_rgb is not None
+        if compact:
+            # the loader split targets from sources by the same arithmetic
+            # (SourceCompactor.n_targets)
+            n_targets = image_rgb.shape[0]
+            if n_targets >= B:
+                raise ValueError("a compact batch's camera must cover its targets and its sources")
+        elif training:
             n_targets = B if self.n_train_target_views <= 0 else min(self.n_train_target_views, B)
         else:
             n_targets = 1
-        if B <= n_targets:
+        if not compact and B <= n_targets:
             n_targets = 1
 
         def targets(x):
@@ -371,9 +394,13 @@ class HoloDiffusionModel(nn.Module):
         def sources(x):
             return None if x is None else (x[n_targets:] if B > 1 else x)
 
-        if image_rgb is not None:
-            if voxel_features is not None:
-                raise ValueError("give image_rgb or voxel_features, not both")
+        if image_rgb is not None and voxel_features is not None:
+            raise ValueError("give image_rgb or voxel_features, not both")
+        if compact:
+            grid = self.pool_features(src_image_rgb, camera[n_targets:], src_fg_probability, src_mask_crop,
+                                      prerescaled=True)
+            voxel_features = grid[None]
+        elif image_rgb is not None:
             grid = self.pool_features(
                 sources(image_rgb), camera[n_targets:] if B > 1 else camera,
                 sources(fg_probability), sources(mask_crop))

@@ -1,5 +1,7 @@
-"""The CO3D loader's C++ host code, bound with ctypes (port of
-holo_diffusion_tpu/native/__init__.py, the functions the loader uses).
+"""The data path's C++ host code, bound with ctypes (port of
+holo_diffusion_tpu/native/__init__.py): the CO3D loader's crop/resize and
+mask box, PNG row unfiltering, and the compact-source composite + resize
+(data/compact.py).
 
 `csrc/preprocess.cpp` is compiled with g++ at first use by `ops/_build.py`
 into `build/holo_diffusion_torch/`. A failed build raises with the
@@ -37,6 +39,11 @@ def get_lib() -> ctypes.CDLL:
             _F32P, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ]
         lib.hd_crop_resize_batch_u8.restype = None
+        lib.hd_compact_source_batch_u8.argtypes = [
+            ctypes.POINTER(_U8P), ctypes.POINTER(_U8P), _I32P, ctypes.c_int, ctypes.c_int,
+            _U8P, _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _F32P, ctypes.c_int, ctypes.c_int,
+        ]
+        lib.hd_compact_source_batch_u8.restype = None
         lib.hd_mask_bbox.argtypes = [_F32P, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, _I32P]
         lib.hd_mask_bbox.restype = ctypes.c_int
         lib.hd_png_unfilter.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
@@ -102,6 +109,39 @@ def crop_resize_batch_u8(
     get_lib().hd_crop_resize_batch_u8(ptrs, _ptr(hws, _I32P), _ptr(boxes, _I32P), N, C,
                                       _ptr(dst, _F32P), *out_hw, scale, n_threads)
     return dst
+
+
+def compact_source_batch_u8(
+    imgs: np.ndarray, fgs: Optional[np.ndarray], out_hw: Tuple[int, int], thr: float, bg_color,
+    mask_images: bool, n_threads: int = 8,
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """The compact-source preprocess in one pass over each frame: where
+    fg > thr fails at a bilinear corner read, that corner reads `bg_color`
+    (with `mask_images`), which is compositing at full resolution and then
+    resizing, without the full-resolution intermediate; uint8 out, rounded
+    to nearest. imgs (N, H, W, C) uint8, C <= 4; fgs (N, H, W[, 1]) uint8 or
+    None (no masking). Returns (img (N, outH, outW, C), fg (N, outH, outW,
+    1) or None), both uint8: the fg output is the resized binarised mask."""
+    imgs = np.ascontiguousarray(imgs, np.uint8)
+    N, H, W, C = imgs.shape
+    if C > 4:
+        raise ValueError(f"compact sources take at most 4 channels, got {C}")
+    img_dst = np.empty((N, *out_hw, C), np.uint8)
+    hws = np.asarray([[H, W]] * N, np.int32).reshape(-1)
+    img_ptrs = (_U8P * N)(*[_ptr(imgs[i], _U8P) for i in range(N)])
+    fg_ptrs = fg_dst = None
+    if fgs is not None:
+        fgs = np.ascontiguousarray(np.asarray(fgs, np.uint8).reshape(N, H, W))
+        fg_ptrs = (_U8P * N)(*[_ptr(fgs[i], _U8P) for i in range(N)])
+        fg_dst = np.empty((N, *out_hw), np.uint8)
+    bg = np.asarray(np.clip(np.round(np.asarray(bg_color, np.float64) * 255.0), 0, 255), np.float32)
+    if bg.size < C:
+        raise ValueError(f"bg_color has {bg.size} channels for frames of {C}")
+    get_lib().hd_compact_source_batch_u8(
+        img_ptrs, fg_ptrs, _ptr(hws, _I32P), N, C, _ptr(img_dst, _U8P),
+        None if fg_dst is None else _ptr(fg_dst, _U8P), *out_hw, float(thr) * 255.0,
+        _ptr(bg, _F32P), int(bool(mask_images)), n_threads)
+    return img_dst, None if fg_dst is None else fg_dst[..., None]
 
 
 def mask_bbox_native(mask: np.ndarray, thr: float, context: float) -> Optional[Tuple[int, int, int, int]]:

@@ -1,9 +1,21 @@
-"""The training step on one device (port of the single-device leg of
-holo_diffusion_tpu/parallel/train_step.py): forward with `training=True`,
-backward of the objective, optimizer step, then the loss-second-moment
-sampler's update and the EMA of the parameters when they are on; K such
-steps per call with `steps_per_call` K; and the EVALUATION forward of a
-batch.
+"""The training step (port of holo_diffusion_tpu/parallel/train_step.py):
+forward with `training=True`, backward of the objective, optimizer step,
+then the loss-second-moment sampler's update and the EMA of the parameters
+when they are on; K such steps per call with `steps_per_call` K; and the
+EVALUATION forward of a batch.
+
+With a mesh (parallel/mesh.py: one process a GPU, each on its own scene)
+the ranks average their gradients after `backward` with one flat
+`all_reduce` (parallel/collectives.py), gather the sampler's (t, loss)
+pairs and average the metrics with one more; every rank then applies the
+same update, so the state stays bitwise equal across ranks. JAX takes the
+mean of the objective before the gradient (train_step.py:280-284); the sum
+of the gradients divided by the world size is the same in exact arithmetic
+and differs only in float order. Each rank's coin for the bootstrap pass is
+its own, so ranks may run different graphs: the explicit reduction after
+`backward` does not mind, where DistributedDataParallel's hooks would.
+With a packer (data/packing.py) the batch arrives as one uint8 buffer and
+is unpacked into views first; that is single-device only, as in JAX.
 
     state = TrainState.create(model, optimizer, sampler_state, ema=True)
     train_step = make_train_step(model, optimizer, schedule_sampler="loss-second-moment",
@@ -28,6 +40,7 @@ from ..models import diffusion as gd
 from ..models.holo_model import HoloDiffusionModel
 from ..random_draws import Draws
 from ..train.optimizer import Optimizer
+from .collectives import gathered_loss_aware_update, mean_over_ranks
 
 TRACKED_METRICS = (
     "objective",
@@ -121,6 +134,8 @@ def make_train_step(
     schedule_sampler: str = "uniform",
     ema_rate: float = 0.0,
     steps_per_call: int = 1,
+    mesh=None,
+    packer=None,
 ) -> Callable[[TrainState, FrameData, Any], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """train_step(state, batch, generator_or_draws) -> (state, metrics).
 
@@ -139,7 +154,13 @@ def make_train_step(
     steps_per_call K > 1: the batch carries a leading step axis
     (`FrameData.stack_steps`), K optimizer steps run in the call, and the
     metrics are their average; the draws are one generator or K mappings.
+    mesh (parallel/mesh.py:make_mesh): data parallel across its ranks, each
+    passing its own batch and draws; the collectives run every step, also
+    within a call of K steps. packer (data/packing.py:BatchPacker): the
+    batch is the packed buffer on the device.
     """
+    if packer is not None and mesh is not None:
+        raise ValueError("packed transfer is single-device: under a mesh each rank copies its own batch")
     if schedule_sampler not in ("uniform", "loss-second-moment"):
         raise NotImplementedError(f"unknown schedule sampler: {schedule_sampler}")
     loss_aware = schedule_sampler == "loss-second-moment"
@@ -160,17 +181,33 @@ def make_train_step(
             training=True,
             draws=draws,
             timesteps=timesteps,
+            src_image_rgb=batch.src_image_rgb,
+            src_fg_probability=batch.src_fg_probability,
+            src_mask_crop=batch.src_mask_crop,
         )
         objective = preds["objective"]
         take_boot = bool(preds.get("diffusion_take_boot", False))
         if loss_aware:
             objective = objective * importance_scale(weights, take_boot)
         objective.backward()
+        if mesh is not None:
+            # a parameter without a gradient on this rank enters as zeros,
+            # so every rank reduces the same buffer
+            params = optimizer.params()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            for p, g in zip(params, mean_over_ranks(grads, mesh.group)):
+                p.grad = g
         optimizer.step()
         metrics = scalar_metrics(preds)
         if loss_aware:
-            state.sampler_state = gd.loss_aware_update(
-                state.sampler_state, timesteps, metrics["objective"].expand(2), ts_validity_mask(take_boot))
+            if mesh is None:
+                state.sampler_state = gd.loss_aware_update(
+                    state.sampler_state, timesteps, metrics["objective"].expand(2), ts_validity_mask(take_boot))
+            else:
+                state.sampler_state = gathered_loss_aware_update(
+                    state.sampler_state, timesteps, metrics["objective"], ts_validity_mask(take_boot), mesh.group)
+        if mesh is not None:
+            metrics = dict(zip(metrics, mean_over_ranks(list(metrics.values()), mesh.group)))
         if ema_rate > 0.0:
             gd.update_ema(state.ema, dict(model.named_parameters()), ema_rate)
         state.step += 1
@@ -184,6 +221,8 @@ def make_train_step(
         if ema_rate > 0.0 and state.ema is None:
             raise ValueError("ema_rate > 0 needs a state with an EMA (TrainState.create(..., ema=True))")
         draws = _per_step_draws(generator_or_draws, steps_per_call)
+        if packer is not None:
+            batch = packer.unpack(batch)
         if steps_per_call == 1:
             return state, one_step(state, batch, draws[0])
         per_step = [one_step(state, batch.step(k), draws[k]) for k in range(steps_per_call)]
@@ -211,6 +250,9 @@ def make_eval_step(model: HoloDiffusionModel) -> Callable[..., Dict[str, torch.T
             depth_map=batch.depth_map,
             training=False,
             draws=draws,
+            src_image_rgb=batch.src_image_rgb,
+            src_fg_probability=batch.src_fg_probability,
+            src_mask_crop=batch.src_mask_crop,
         )
         return {
             **scalar_metrics(preds),

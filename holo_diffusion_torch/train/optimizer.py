@@ -59,7 +59,8 @@ class Optimizer:
         self.steps = 0
         self._set_lr()
 
-    def _params(self):
+    def params(self):
+        """The parameters it updates, group by group."""
         return [p for g in self.optimizer.param_groups for p in g["params"]]
 
     def _set_lr(self):
@@ -81,7 +82,7 @@ class Optimizer:
 
     def step(self):
         if self.clip_grad and self.clip_grad > 0:
-            torch.nn.utils.clip_grad_norm_(self._params(), self.clip_grad)
+            torch.nn.utils.clip_grad_norm_(self.params(), self.clip_grad)
         self.optimizer.step()
         self.steps += 1
         self._set_lr()

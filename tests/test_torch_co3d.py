@@ -436,8 +436,9 @@ def test_tiny_experiment_runs_and_resumes_on_co3d(trees, tmp_path):
 
 def test_hydrant_with_the_co3d_provider_builds(trees, tmp_path):
     """hydrant.yaml's data section, pointed at a tree: no NotImplementedError,
-    no unconsumed key; compact_sources and packed_transfer still raise,
-    naming ROADMAP item 1."""
+    no unconsumed key; compact_sources and packed_transfer, once refused,
+    build with compaction (mirroring hydrant's split and resize) or packing
+    set up."""
     ds = "data_source_ImplicitronDataSource_args.dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
     base = [f"{ds}dataset_root={trees['torch']}", f"{ds}category=synthball", f"exp_dir={tmp_path}"]
     cfg = load_config("hydrant", base)
@@ -447,9 +448,12 @@ def test_hydrant_with_the_co3d_provider_builds(trees, tmp_path):
     exp = Experiment(cfg, device="cpu")
     assert isinstance(exp.data, tco3d.CO3DDataProvider) and exp.batch_size == 33
     assert exp.data.eval_batches is not None and len(exp.data.train) == N_SEQ
-    for flag in ("compact_sources=true", "packed_transfer=true"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 1\b"):
-            Experiment(load_config("hydrant", base + [flag]), device="cpu")
+    compact = Experiment(load_config("hydrant", base + ["compact_sources=true"]), device="cpu")
+    comp = compact.compactor
+    assert (comp.n_train_target_views, comp.image_rescale, comp.n_targets(33)) == (
+        compact.model.n_train_target_views, 0.32, compact.model.n_train_target_views)
+    packed = Experiment(load_config("hydrant", base + ["packed_transfer=true"]), device="cpu")
+    assert packed.compactor is None and packed._make_packer() is not None
 
 
 def test_host_batches_go_to_the_device_through_the_loop(trees, tmp_path):

@@ -213,12 +213,12 @@ def test_eval_only_uses_dataset_eval_batches(tmp_path):
 
 def test_lpips_weights_raise_naming_their_item(tmp_path):
     """LPIPS in the evaluation is ported (tests/test_torch_lpips.py): its
-    weights path builds an Experiment, and asked for beside compact sources
-    it does not hide their refusal."""
+    weights path builds an Experiment, also beside compact sources (once
+    refused), which set up their compactor."""
     Experiment(tiny_cfg(tmp_path / "exp", ["lpips_vgg_weights_path=/nonexistent/vgg.pth"]), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 1\b"):
-        Experiment(tiny_cfg(tmp_path / "exp", ["lpips_vgg_weights_path=/nonexistent/vgg.pth",
-                                               "compact_sources=true"]), device="cpu")
+    exp = Experiment(tiny_cfg(tmp_path / "exp", ["lpips_vgg_weights_path=/nonexistent/vgg.pth",
+                                                 "compact_sources=true"]), device="cpu")
+    assert exp.compactor is not None and exp.cfg["lpips_vgg_weights_path"] == "/nonexistent/vgg.pth"
 
 
 def test_evaluation_entry_points_raise_without_cuda(tiny_models, tmp_path, monkeypatch):

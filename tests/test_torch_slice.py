@@ -167,7 +167,8 @@ def test_port_imports_no_jax():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     for new in ("models/lpips.py", "models/inception.py", "evaluation_fid.py", "evaluate_samples.py",
-                "utils/vis.py", "utils/profiling.py"):
+                "utils/vis.py", "utils/profiling.py", "data/compact.py", "data/packing.py", "parallel/launch.py",
+                "parallel/mesh.py", "parallel/collectives.py"):
         assert os.path.join(REPO, "holo_diffusion_torch", new) in files, new
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "holo_diffusion_tpu")
     for path in files:

@@ -24,6 +24,8 @@ from torch_tiny_config import LOOP, MODEL, tiny_cfg  # noqa: E402
 import holo_diffusion_torch.config.config as tcfg  # noqa: E402
 import holo_diffusion_tpu.config.config as jcfg  # noqa: E402
 from holo_diffusion_torch.data import source as tsource  # noqa: E402
+from holo_diffusion_torch.data.compact import CompactSceneSampler, SourceCompactor  # noqa: E402
+from holo_diffusion_torch.data.packing import BatchPacker  # noqa: E402
 from holo_diffusion_torch.experiment import Experiment  # noqa: E402
 from holo_diffusion_torch.train import checkpoint as tckpt  # noqa: E402
 from holo_diffusion_torch.train.stats import Stats  # noqa: E402
@@ -281,28 +283,22 @@ def test_lr_milestones_count_epochs(tmp_path):
 
 _STRATIFIED_EVAL = MODEL + "raysampler_AdaptiveRaySampler_args.stratified_point_sampling_evaluation=true"
 _UNPORTED = {
-    # EMA, the loss-aware sampler and steps per dispatch are ported
-    # (tests/test_torch_train_full.py); asked for beside compact sources,
-    # they do not hide its refusal
+    # compact sources and packed transfer, once refused, are ported
+    # (tests/test_torch_compact.py, test_torch_packing.py); beside the other
+    # loop features they build an Experiment with compaction or packing set up
     "ema": (["ema_rate=0.5", "compact_sources=true"], 1),
     "loss_second_moment": ([MODEL + "diffusion_args.schedule_sampler_type=loss-second-moment",
                             "compact_sources=true"], 1),
     "steps_per_dispatch": (["steps_per_dispatch=2", "compact_sources=true"], 1),
-    # the CO3D provider itself is ported (tests/test_torch_co3d.py); its
-    # compact-source path is not
+    # the CO3D provider, on a tree written into the test's directory
     "co3d": ([DS + "dataset_map_provider_class_type=JsonIndexDatasetMapProviderV2", "compact_sources=true"], 1),
     "compact_sources": (["compact_sources=true"], 1),
     "packed_transfer": (["packed_transfer=true"], 1),
-    # evaluation and its stratified sampling are ported
-    # (tests/test_torch_evaluation.py, tests/test_torch_eval_sampling.py);
-    # asked for beside compact sources, they do not hide its refusal
     "eval_only": ([LOOP + "eval_only=true", _STRATIFIED_EVAL, "compact_sources=true"], 1),
     "test_interval": (["disable_testing=false", LOOP + "test_interval=1", _STRATIFIED_EVAL,
                        "compact_sources=true"], 1),
     "test_when_finished": (["disable_testing=false", LOOP + "test_when_finished=true", _STRATIFIED_EVAL,
                             "compact_sources=true"], 1),
-    # the profiler and the visualizations are ported (tests/test_torch_vis.py);
-    # asked for beside compact sources, they do not hide its refusal
     "profile": ([LOOP + "profile=true", "compact_sources=true"], 1),
     "visualize": (["disable_validation=false", LOOP + "visualize_interval=1", "compact_sources=true"], 1),
 }
@@ -310,9 +306,32 @@ _UNPORTED = {
 
 @pytest.mark.parametrize("case", list(_UNPORTED))
 def test_unported_features_raise(case, tmp_path):
-    overrides, item = _UNPORTED[case]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP.md §1 item {item}\b"):
-        Experiment(tiny_cfg(tmp_path / "exp", overrides), device="cpu")
+    """The keys the port once refused (compact_sources, packed_transfer)
+    now build: the Experiment sets up the compactor, mirroring the model's
+    split and extractor resize, with its scene cache and compact validation
+    batches; or the packer."""
+    overrides, _ = _UNPORTED[case]
+    if case == "co3d":
+        from holo_diffusion_torch.data.synthetic_co3d import write_synthetic_co3d
+
+        root = str(tmp_path / "data")
+        cat = write_synthetic_co3d(root, n_seq=2, n_frames=4, H=24, W=32, seed=0, n_val_frames=1)
+        co3d_args = DS + "dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
+        overrides = overrides + [co3d_args + f"dataset_root={root}", co3d_args + f"category={cat}"]
+    exp = Experiment(tiny_cfg(tmp_path / "exp", overrides), device="cpu")
+    if "packed_transfer=true" in overrides:
+        assert exp.compactor is None and isinstance(exp._make_packer(), BatchPacker)
+        return
+    assert exp._make_packer() is None
+    comp = exp.compactor
+    assert isinstance(comp, SourceCompactor) and comp.host_resize == "native"
+    assert (comp.n_train_target_views, comp.image_rescale) == (
+        exp.model.n_train_target_views, exp.model.image_feature_extractor.image_rescale)
+    # no depth term weighs in the tiny objective
+    assert comp.drop_depth
+    sampler = exp._compact_train_data()
+    assert isinstance(sampler, CompactSceneSampler) and sampler.dataset is exp.data.train
+    assert isinstance(exp._val_data, CompactSceneSampler) and exp._val_data.compactor.n_train_target_views == 1
 
 
 def test_ported_settings_of_those_keys_do_not_raise(tmp_path):
