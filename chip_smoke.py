@@ -104,8 +104,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
            on the fused model and bitwise in deterministic mode, the flat
            all_reduce's ms; `torchrun --nproc_per_node 1` on the train CLI
            with compact sources and packed transfer, its checkpoint loaded
+  model_parallel  the UNet sharded over the grid's D axis and the render
+           with rays sharded over ranks, in a process group of one rank
+           through NCCL: the sharded hydrant UNet against the plain one at
+           resol 16 and 64 (ms, peak memory, collectives by kind), one
+           sharded DDPM step against the plain step, the sharded 10-step
+           sampling loop and a ray-sharded 512^2 frame of its grid (K3
+           exactly twice) against the chunked frame; the UNet family
+           (2D class-conditional UNet, SuperResModel, EncoderUNetModel with
+           the attention and spatial pools, AsymmetricUNetModel) card
+           against CPU; the extractor in bfloat16 against float32 on 30
+           sources at 256^2
   kernels summary, the card's name and power limit, and the result line.
-Twenty main paths, each with the launch counters zeroed right before it and
+Twenty-one main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
 K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
 steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
@@ -122,7 +133,8 @@ else); then sample quality's: the four extractors' sample evaluations
 twice a chunk of each target) and the loop with visualizations (K2 twice a
 step, K3 twice a step and twice a chunk of each validation and video
 frame); then the compact loop's (K2 twice a step, K3 twice a step and twice
-a chunk of each validation frame, nothing else).
+a chunk of each validation frame, nothing else); then the sharded sampling
+loop and the ray-sharded frame (K3 exactly twice, nothing else).
 Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import contextlib
@@ -197,6 +209,17 @@ SHADED_SHARE = 0.01
 # tolerance for this 94-conv net, tests/test_inception.py:242); VGG relu5_3
 # pooled, of the features' scale; LPIPS of an 800^2 pair, relative
 QUALITY_TOL = {"inception": 2e-3, "vgg": 1e-3, "lpips": 1e-4}
+# the sharded UNet (world size 1 through NCCL) against the plain forward, of
+# the output's scale: the same cuDNN convolutions, the halo's D padding 0
+# instead of padding 1, and GroupNorm's two-pass statistics in float32
+SHARDED_TOL = 1e-4
+# the UNet family, card against CPU, of the output's scale: float32 through
+# up to ~40 convolutions summed in other orders
+UNET_FAMILY_TOL = 1e-3
+# the extractor's features, bfloat16 convolutions against float32, of the
+# features' scale: bfloat16 keeps 8 bits of mantissa through 36 convolutions
+# (a bound on the drift, not a parity check)
+EXTRACTOR_BF16_TOL = 0.1
 
 
 def emit(obj):
@@ -2409,19 +2432,6 @@ def scale_out_phase(here, dev, results):
         nbytes = sum(g.numel() * g.element_size() for g in grads)
         flat = torch.cat([g.reshape(-1) for g in grads])
 
-        def events_ms(fn, n=5):
-            fn()
-            out = []
-            for _ in range(n):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                start.record()
-                fn()
-                end.record()
-                torch.cuda.synchronize()
-                out.append(start.elapsed_time(end))
-            return out
-
         all_reduce_ms = events_ms(lambda: dist.all_reduce(flat))
         mean_ms = events_ms(lambda: mean_over_ranks(grads))
         sampler = gd.LossSecondMomentState.create(model.schedule.num_timesteps, device=dev)
@@ -2467,6 +2477,314 @@ def scale_out_phase(here, dev, results):
     emit({"phase": "scale_out", **report})
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def events_ms(fn, n=5):
+    """CUDA-event ms of each of `n` calls of `fn`, after one warm-up call."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def scale_diff(a, b):
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+
+
+@contextlib.contextmanager
+def captured_decodes():
+    """Every fused decode the render path calls while inside, as (its
+    arguments by name, cloned outputs) in call order; the wrapper itself
+    runs (and counts) as ever."""
+    import inspect
+
+    from holo_diffusion_torch.models import implicit
+
+    real = implicit.fused_sample_decode
+    signature = inspect.signature(real)
+    calls = []
+
+    def capture(*args, **kw):
+        out = real(*args, **kw)
+        bound = signature.bind(*args, **kw)
+        bound.apply_defaults()
+        calls.append((dict(bound.arguments), tuple(o.clone() for o in out)))
+        return out
+
+    implicit.fused_sample_decode = capture
+    try:
+        yield calls
+    finally:
+        implicit.fused_sample_decode = real
+
+
+def decode_against_plain(args, out, rays_per_slice=8192):
+    """A fused decode's outputs `out` against the plain version on the same
+    inputs (`args`, by name), the plain version run over slices of rays so
+    that its per-point intermediates fit: (max abs error by lane, CUDA-event
+    ms of the sliced plain pass)."""
+    import torch
+
+    from holo_diffusion_torch.ops import fused_decode as fd
+
+    P = args["points"].shape[-2]
+    points, pe = args["points"].reshape(-1, P, 3), args["pe_dirs"].reshape(-1, args["pe_dirs"].shape[-1])
+    out = [o.reshape(-1, P, o.shape[-1]) for o in out]
+    errs = [torch.zeros((), device=points.device) for _ in out]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    with torch.no_grad():
+        for s in range(0, points.shape[0], rays_per_slice):
+            ref = fd.fused_sample_decode_reference(**{**args, "points": points[s:s + rays_per_slice],
+                                                      "pe_dirs": pe[s:s + rays_per_slice]})
+            errs = [torch.maximum(e, (o[s:s + rays_per_slice] - r).abs().max()) for e, o, r in zip(errs, out, ref)]
+    end.record()
+    torch.cuda.synchronize()
+    return [float(e) for e in errs], start.elapsed_time(end)
+
+
+def decode_pass_differences(one, chunked):
+    """Where a frame rendered in one forward and the same frame in chunks
+    part: for the coarse and the fine pass (the calls alternate, coarse
+    first), the max abs difference of the decode's points and of each of
+    its outputs, the chunks' calls joined in ray order."""
+    import torch
+
+    diffs = {}
+    for k, name in enumerate(("coarse", "fine")):
+        (args, out), parts = one[k], chunked[k::2]
+        P = args["points"].shape[-2]
+        joined = [torch.cat([a["points"].reshape(-1, P, 3) for a, _ in parts])]
+        joined += [torch.cat([o[i].reshape(-1, P, o[i].shape[-1]) for _, o in parts]) for i in range(len(out))]
+        mine = [args["points"].reshape(-1, P, 3)] + [o.reshape(-1, P, o.shape[-1]) for o in out]
+        diffs[name] = {lane: float((x - y).abs().max())
+                       for lane, x, y in zip(("points", "density", "rgb", "normals"), mine, joined)}
+    return diffs
+
+
+def model_parallel_phase(here, dev, results):
+    """The UNet sharded over the grid, the ray-sharded render, the rest of
+    the UNet family and the bfloat16 extractor, in a process group of one
+    rank through NCCL (FileStore):
+    (1) `make_sharded_denoiser` on the hydrant model (seeded random weights)
+    at resol 16 against the plain `apply_net_3d`: max abs diff within
+    SHARDED_TOL of the output's scale, ms per evaluation for both, the
+    collectives of one forward by kind; the same at resol 64 (3 evaluations
+    each, ms and peak memory);
+    (2) one sharded `p_sample` step against the plain step (SHARDED_TOL of
+    scale);
+    (3) the main path `model_parallel`: `sample_random_voxel_features_sharded`
+    cut to 10 steps (in [-1, 1], finite, s) and `render_image_sharded` of
+    its grid at 512^2: K3 exactly twice, nothing else; both launches
+    captured and held against the plain decode on their own inputs
+    (KERNEL_TOL), with K3's time at that shape (CUDA events); then
+    `render_image_chunked` of the same grid (RENDER_TOL), with the two
+    frames' decode inputs and outputs compared pass by pass, and s per
+    frame for both (3 frames each after a warm-up);
+    (4) card against CPU on one narrow instance of each new model at the
+    JAX package's default widths (UNET_FAMILY_TOL of scale);
+    (5) the extractor in bfloat16 against float32 on hydrant's 30 sources
+    at 256^2: ms forward and forward + backward, the features' max
+    difference relative to their scale."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from holo_diffusion_torch.config import load_config, model_args_from_config
+    from holo_diffusion_torch.models import diffusion as gd
+    from holo_diffusion_torch.models.feature_extractor import ResNetFeatureExtractor
+    from holo_diffusion_torch.models.unet3d import UNetModel3D
+    from holo_diffusion_torch.models.unet_gigagan import AsymmetricUNetModel
+    from holo_diffusion_torch.models.unet_variants import EncoderUNetModel, SuperResModel
+    from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.parallel import spatial
+    from holo_diffusion_torch.parallel.mesh import make_mesh
+    from holo_diffusion_torch.render_eval import render_image_chunked, render_image_sharded
+    from holo_diffusion_torch.utils.flyaround import CANONICAL_CO3D_UP_AXIS, simple_360_cameras
+    from holo_diffusion_torch.weights import init_weights
+
+    report = {}
+    work = os.path.join(here, "build", "chip_smoke", "model_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(work, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(dev)
+        model = init_weights(build_hydrant(load_config("hydrant")), seed=0).to(dev).eval()
+        report["params_m"] = sum(p.numel() for p in model.parameters()) / 1e6
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t = torch.tensor([500], device=dev)
+        sharded = spatial.make_sharded_denoiser(model, mesh)
+        with torch.no_grad():
+            for resol in (16, 64):
+                x = torch.randn(1, resol, resol, resol, model.feature_size, generator=gen, device=dev)
+                spatial.reset_counts()
+                got = sharded(x, t)
+                counts = dict(spatial.COUNTS)
+                want = model.apply_net_3d(x, t)
+                torch.cuda.reset_peak_memory_stats()
+                sharded_ms = events_ms(lambda: sharded(x, t), n=3)
+                sharded_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                torch.cuda.reset_peak_memory_stats()
+                plain_ms = events_ms(lambda: model.apply_net_3d(x, t), n=3)
+                plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                report[f"unet_{resol}"] = {
+                    "max_abs_diff_of_scale": scale_diff(got, want), "collectives_per_forward": counts,
+                    "sharded_ms": sharded_ms, "plain_ms": plain_ms,
+                    "sharded_peak_gib": sharded_peak, "plain_peak_gib": plain_peak}
+                del x, got, want
+            # one sharded p_sample step against the plain step, the same noise
+            x = torch.randn(1, 16, 16, 16, model.feature_size, generator=gen, device=dev)
+            noise = torch.randn(x.shape, generator=gen, device=dev)
+            ts = torch.tensor([700], device=dev)
+            a = gd.p_sample(model.schedule, sharded, x, ts, noise=noise)["sample"]
+            b = gd.p_sample(model.schedule, model.apply_net_3d, x, ts, noise=noise)["sample"]
+            report["p_sample_step_max_abs_diff_of_scale"] = scale_diff(a, b)
+
+        # ---- main path: the sharded 10-step loop, then the ray-sharded frame
+        # (its two decode launches captured for the checks below)
+        cam = simple_360_cameras(1, up=CANONICAL_CO3D_UP_AXIS)[0]
+        reset_launch_counts_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = spatial.sample_random_voxel_features_sharded(model, torch.Generator(device=dev).manual_seed(1),
+                                                           mesh, max_iter=10)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        with captured_decodes() as one:
+            frame = render_image_sharded(model, cam, grid[0], mesh)
+        torch.cuda.synchronize()
+        counts = launch_counts_all()
+        emit({"phase": "main_path", "path": "model_parallel", "launches": counts})
+        expect_launches(counts, "model parallel", exactly={"fused_decode_fwd_normals": 2},
+                        none=("fused_decode_fwd", "fused_decode_bwd", "kron_sample_fwd", "kron_sample_dgrid",
+                              "kron_sample_dpoints", "trilinear_sample_onehot"))
+        k3 = results["fused_decode_fwd_normals"]
+        k3["model_parallel_launches"] = counts["fused_decode_fwd_normals"]
+        with captured_decodes() as chunked:
+            ref = render_image_chunked(model, cam, grid[0], device=dev)
+        render_err = {k: float((frame[k] - ref[k]).abs().max()) for k in frame}
+        # K3 at the main path's shape: its two launches against the plain
+        # version on their own inputs, and its device time there
+        k3_main = {}
+        for name, (args, out) in zip(("coarse", "fine"), one):
+            errs, plain_ms = decode_against_plain(args, out)
+            P = args["points"].shape[-2]
+            R = args["points"].numel() // (3 * P)
+            # CUDA events, not the profiler: this late in the run torch.profiler
+            # records no device events, and a launch of this size dwarfs the
+            # wrapper's own work
+            with torch.no_grad():
+                ms = cuda_time_ms(lambda: fd.fused_sample_decode(**args), iters=5)
+            bytes_ms, f32_ms, tf32x3_ms = decode_bounds(R * P, R, args["grid"].shape, args["hidden"],
+                                                        args["pe_dirs"].shape[-1], True)
+            k3_main[name] = {"rays": R, "points_per_ray": P, "max_abs_err": max(errs), "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, min(f32_ms, tf32x3_ms))}
+            emit({"phase": "kernels", "case": f"model_parallel_{name}", "name": "fused_decode_fwd_normals",
+                  **k3_main[name], "lane_errs": dict(zip(("density", "rgb", "normals"), errs)), "tol": KERNEL_TOL})
+            if not max(errs) <= KERNEL_TOL:
+                raise AssertionError(f"fused_decode_fwd_normals (model_parallel {name}): "
+                                     f"max_abs_err {max(errs)} > {KERNEL_TOL}")
+        k3["model_parallel"] = k3_main
+        trace = decode_pass_differences(one, chunked)
+        del one, chunked
+        # s per frame, after the frames above warmed both paths
+        sharded_s = [ms / 1e3 for ms in events_ms(lambda: render_image_sharded(model, cam, grid[0], mesh), n=3)]
+        chunked_s = [ms / 1e3 for ms in events_ms(lambda: render_image_chunked(model, cam, grid[0], device=dev),
+                                                  n=3)]
+        report["sharded_loop"] = {"steps": 10, "s": loop_s, "finite": bool(torch.isfinite(grid).all()),
+                                  "min": float(grid.min()), "max": float(grid.max())}
+        report["render_512"] = {"sharded_s_per_frame": sharded_s, "chunked_s_per_frame": chunked_s,
+                                "max_abs_diff": render_err, "decode_pass_differences": trace,
+                                "k3_launches": counts["fused_decode_fwd_normals"]}
+        del model, sharded, grid, frame, ref
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the UNet family, card against CPU at the JAX defaults' widths
+    rs = np.random.RandomState(0)
+    family = {
+        "unet_2d_class_conditional": (
+            UNetModel3D(in_channels=3, out_channels=3, dims=2, num_classes=10),
+            (rs.randn(2, 32, 32, 3).astype(np.float32), np.array([10, 900])), {"y": np.array([1, 7])}),
+        "super_res": (SuperResModel(in_channels=6, out_channels=3, dims=2),
+                      (rs.randn(1, 32, 32, 3).astype(np.float32), np.array([5]),
+                       rs.randn(1, 16, 16, 3).astype(np.float32)), {}),
+        "encoder_attention": (EncoderUNetModel(image_size=32, pool="attention"),
+                              (rs.randn(2, 32, 32, 3).astype(np.float32), np.array([3, 300])), {}),
+        "encoder_spatial": (EncoderUNetModel(pool="spatial"),
+                            (rs.randn(2, 32, 32, 3).astype(np.float32), np.array([3, 300])), {}),
+        "asymmetric_gigagan": (AsymmetricUNetModel(), (rs.randn(1, 64, 64, 3).astype(np.float32),), {}),
+    }
+    fam = {}
+    for name, (m, args, kwargs) in family.items():
+        m = init_weights(m, seed=1).eval()
+        ta = [torch.from_numpy(a) for a in args]
+        tk = {k: torch.from_numpy(v) for k, v in kwargs.items()}
+        with torch.no_grad():
+            want = m(*ta, **tk)
+            m.to(dev)
+            da, dk = [a.to(dev) for a in ta], {k: v.to(dev) for k, v in tk.items()}
+            got = m(*da, **dk)
+            ms = events_ms(lambda: m(*da, **dk), n=3)
+        fam[name] = {"params_m": sum(p.numel() for p in m.parameters()) / 1e6,
+                     "max_abs_diff_of_scale": scale_diff(got.cpu(), want), "ms": ms}
+        del m
+    report["unet_family_card_vs_cpu"] = fam
+
+    # ---- the extractor in bfloat16 against float32, hydrant's sources
+    fe_args = model_args_from_config(load_config("hydrant"))["image_feature_extractor_args"]
+    images = torch.rand(30, 256, 256, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+    masks = (images[..., :1] > 0.5).float()
+    ext, feats = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        fe = init_weights(ResNetFeatureExtractor(**{**fe_args, "dtype": dtype}), seed=0).to(dev)
+
+        def fwd():
+            with torch.no_grad():
+                return fe(images, masks, rescale_done=True)
+
+        def fwd_bwd():
+            out = fe(images, masks, rescale_done=True)
+            sum(v.sum() for k, v in out.items() if k.startswith("res_layer")).backward()
+
+        feats[dtype] = fwd()
+        ext[dtype] = {"forward_ms": events_ms(fwd), "forward_backward_ms": events_ms(fwd_bwd)}
+        del fe
+    ext["max_diff_of_scale"] = {k: scale_diff(feats["bfloat16"][k], feats["float32"][k])
+                                for k in feats["float32"] if k.startswith("res_layer")}
+    report["extractor_bf16"] = ext
+    del images, masks, feats
+    emit({"phase": "model_parallel", **report})
+    gc.collect()
+    torch.cuda.empty_cache()
+    fails = [k for k in ("unet_16", "unet_64") if report[k]["max_abs_diff_of_scale"] > SHARDED_TOL]
+    if report["p_sample_step_max_abs_diff_of_scale"] > SHARDED_TOL:
+        fails.append("p_sample")
+    loop = report["sharded_loop"]
+    if not (loop["finite"] and -1.0 <= loop["min"] and loop["max"] <= 1.0):
+        fails.append("sharded_loop")
+    if max(render_err.values()) > RENDER_TOL:
+        fails.append("render_512")
+    fails += [k for k, v in fam.items() if v["max_abs_diff_of_scale"] > UNET_FAMILY_TOL]
+    if max(ext["max_diff_of_scale"].values()) > EXTRACTOR_BF16_TOL:
+        fails.append("extractor_bf16")
+    if fails:
+        raise AssertionError(f"model_parallel: {fails} beyond tolerance")
 
 
 @contextlib.contextmanager
@@ -2698,6 +3016,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     scale_out_phase(here, dev, results)
+
+    # ---- the UNet sharded over the grid, the ray-sharded render, the UNet family
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_parallel_phase(here, dev, results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)

@@ -3,6 +3,7 @@ from .config import (
     audit_unconsumed_keys,
     data_source_args_from_config,
     dump_expconfig,
+    extractor_weights_path,
     load_config,
     model_args_from_config,
     optimizer_args_from_config,
@@ -14,6 +15,7 @@ __all__ = [
     "audit_unconsumed_keys",
     "data_source_args_from_config",
     "dump_expconfig",
+    "extractor_weights_path",
     "load_config",
     "model_args_from_config",
     "optimizer_args_from_config",

@@ -144,9 +144,11 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
     for k in ("exclude_target_view", "exclude_target_view_mask_features",
               "concatenate_output", "checkpointed_mlp"):
         agg_args.pop(k, None)
-    if fe.get("pretrained", False):
+    if fe.get("pretrained", False) and not fe.get("weights_path"):
         logger.warning("image_feature_extractor pretrained=true: the repository holds no "
-                       "ImageNet weights; the extractor starts from its seeded initialisation")
+                       "ImageNet weights; the extractor starts from its seeded initialisation "
+                       "(set image_feature_extractor_ResNetFeatureExtractor_args.weights_path "
+                       "to a torchvision resnet state_dict)")
 
     for key, default in (
         ("net_3d_class_type", "SimpleUnet3D"),
@@ -256,6 +258,14 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
             schedule_sampler_type=diff.get("schedule_sampler_type", "uniform"),
         )
     return args
+
+
+def extractor_weights_path(cfg: Dict[str, Any]) -> Optional[str]:
+    """The torchvision ResNet state_dict the extractor starts from: its
+    `weights_path` when `pretrained` is true, else None."""
+    m = cfg.get("model_factory_ImplicitronModelFactory_args", {}).get("model_HoloDiffusionModel_args", {})
+    fe = m.get("image_feature_extractor_ResNetFeatureExtractor_args", {})
+    return fe.get("weights_path") if fe.get("pretrained", False) else None
 
 
 def optimizer_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:

@@ -107,3 +107,15 @@ def packed_transfer(packer: BatchPacker, device: DeviceLike) -> Callable[[FrameD
         return packer.pack(batch, pin=dev.type == "cuda").to(dev, non_blocking=True)
 
     return transfer
+
+
+def make_packer_for_groups(example_batch: Optional[FrameData] = None, steps_per_call: int = 1) -> BatchPacker:
+    """A packer for the batches of one train-step call: without an example
+    its layout comes from the first packed batch; with one, from the
+    example, stacked `steps_per_call` times (`FrameData.stack_steps`) when
+    a call takes more than one step's batch."""
+    if example_batch is None:
+        return BatchPacker()
+    if steps_per_call > 1:
+        example_batch = FrameData.stack_steps([example_batch] * steps_per_call)
+    return BatchPacker(example_batch)

@@ -46,6 +46,7 @@ from .config import (
     audit_unconsumed_keys,
     data_source_args_from_config,
     dump_expconfig,
+    extractor_weights_path,
     model_args_from_config,
     optimizer_args_from_config,
     training_loop_args_from_config,
@@ -71,7 +72,7 @@ from .train.optimizer import make_lr_schedule, make_optimizer
 from .train.stats import Stats
 from .utils.profiling import SteadyStateProfiler, enable_anomaly_detection
 from .utils.vis import denoising_video, plot_stats_pdf, visualize_preds, write_dashboard_html
-from .weights import init_weights
+from .weights import init_weights, load_resnet_state_dict
 
 logger = logging.getLogger(__name__)
 
@@ -192,10 +193,17 @@ class Experiment:
 
     def init_state(self) -> TrainState:
         """The seeded initialisation (weights.init_weights, drawn on the
-        CPU), on the device, with a fresh optimizer, the loss-second-moment
+        CPU; the extractor's trunk read from the torchvision ResNet
+        state_dict at `...ResNetFeatureExtractor_args.weights_path` when
+        `pretrained` is true), on the device, with a fresh optimizer, the loss-second-moment
         sampler's empty state when that sampler is on, and an EMA that
         starts at the parameters when `ema_rate` > 0."""
         init_weights(self.model, self.seed)
+        resnet = extractor_weights_path(self.cfg)
+        if resnet and self.model.view_pooler_enabled:
+            load_resnet_state_dict(self.model.image_feature_extractor,
+                                   torch.load(resnet, map_location="cpu", weights_only=True))
+            logger.info("extractor trunk read from %s", resnet)
         self.model.to(self.device)
         logger.info("model has %.2fM params", sum(p.numel() for p in self.model.parameters()) / 1e6)
         opt = make_optimizer(self.model.named_parameters(), **self.opt_args["optimizer"],

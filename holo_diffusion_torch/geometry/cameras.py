@@ -1,5 +1,5 @@
 """Perspective cameras with PyTorch3D conventions (port of
-holo_diffusion_tpu/geometry/cameras.py, the subset serving and training use).
+holo_diffusion_tpu/geometry/cameras.py).
 
   - world -> camera: x_cam = x_world @ R + T          (row vectors)
   - camera centre:   C = -T @ R^T
@@ -38,6 +38,23 @@ class PerspectiveCameras:
         return PerspectiveCameras(
             *(getattr(self, f.name).to(device, non_blocking=non_blocking) for f in dataclasses.fields(self))
         )
+
+    @classmethod
+    def identity(cls, batch_size: int = 1, focal: float = 1.0, device=None) -> "PerspectiveCameras":
+        """Cameras at the origin looking down +z: R = I, T = 0, focal
+        `focal`, principal point 0."""
+        return cls(
+            R=torch.eye(3, device=device).expand(batch_size, 3, 3).clone(),
+            T=torch.zeros(batch_size, 3, device=device),
+            focal_length=torch.full((batch_size, 2), float(focal), device=device),
+            principal_point=torch.zeros(batch_size, 2, device=device),
+        )
+
+
+def join_cameras(cams) -> PerspectiveCameras:
+    """Concatenate camera batches along the batch dimension."""
+    return PerspectiveCameras(*(torch.cat([getattr(c, f.name) for c in cams])
+                                for f in dataclasses.fields(PerspectiveCameras)))
 
 
 def camera_centers(cameras: PerspectiveCameras) -> torch.Tensor:

@@ -11,6 +11,12 @@ downsample.{0,1}`, `proj_layers.{stage - 1}`.
 BatchNorm always normalises with its running statistics, also under
 `model.train()`: the reference calls the extractor in eval mode while its
 BN scale and bias still train (`RunningStatsBatchNorm2d`).
+
+`dtype="bfloat16"` (the JAX package's extension, config key
+`image_feature_extractor_ResNetFeatureExtractor_args.dtype`): the
+convolutions (stem, blocks, downsample, projections) compute in bfloat16
+under autocast; BatchNorm, the residual sums and the outputs stay float32.
+The parameters stay float32.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ class RunningStatsBatchNorm2d(nn.BatchNorm2d):
     and never updates them."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+        # float32 also after a bfloat16 convolution
+        return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight, self.bias,
                             training=False, momentum=0.0, eps=self.eps)
 
 
@@ -92,8 +99,9 @@ class ResNetFeatureExtractor(nn.Module):
         dtype: str = "float32",
     ):
         super().__init__()
-        if dtype != "float32":
-            raise NotImplementedError(f"extractor dtype {dtype!r}: the port computes in float32")
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"extractor dtype {dtype!r}: float32 or bfloat16")
+        self.dtype = getattr(torch, dtype)
         self.stages = tuple(stages)
         self.normalize_image = normalize_image
         self.image_rescale = image_rescale
@@ -131,16 +139,17 @@ class ResNetFeatureExtractor(nn.Module):
             x = resize_image(x, int(H * self.image_rescale), int(W * self.image_rescale))
         if self.normalize_image:
             x = (x - self._mean) / self._std
-        net = self.net
-        x = F.relu(net.bn1(net.conv1(x.permute(0, 3, 1, 2))))
-        if self.first_max_pool:
-            x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for li in range(1, max(self.stages) + 1):
-            x = getattr(net, f"layer{li}")(x)
-            if li in self.stages:
-                f = self.proj_layers[str(li - 1)](x) if self.proj_dim > 0 else x
-                f = f.permute(0, 2, 3, 1)
-                if self.l2_norm:
-                    f = f / torch.clamp(torch.linalg.norm(f, dim=-1, keepdim=True), min=1e-6)
-                out[f"res_layer_{li}"] = f * self.feature_rescale
+        with torch.autocast(x.device.type, dtype=self.dtype, enabled=self.dtype != torch.float32):
+            net = self.net
+            x = F.relu(net.bn1(net.conv1(x.permute(0, 3, 1, 2))))
+            if self.first_max_pool:
+                x = F.max_pool2d(x, 3, stride=2, padding=1)
+            for li in range(1, max(self.stages) + 1):
+                x = getattr(net, f"layer{li}")(x)
+                if li in self.stages:
+                    f = self.proj_layers[str(li - 1)](x) if self.proj_dim > 0 else x
+                    f = f.permute(0, 2, 3, 1)
+                    if self.l2_norm:
+                        f = f / torch.clamp(torch.linalg.norm(f, dim=-1, keepdim=True), min=1e-6)
+                    out[f"res_layer_{li}"] = f.float() * self.feature_rescale
         return out

@@ -2,11 +2,12 @@
 reference ImplicitronOptimizerFactory): Adam, SGD or Adagrad from
 `torch.optim`, MultiStepLR / Exponential / LinearExponential learning rates
 per step, optional clipping by global gradient norm, per-group learning
-rates by parameter-name substring.
+rates by parameter-name substring; a second optimizer for the parameters
+of a discriminator (`with_discriminator_optimizer`).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -121,3 +122,93 @@ def make_optimizer(
     else:
         raise ValueError(f"unknown optimizer breed {breed}")
     return Optimizer(opt, lr, schedule, clip_grad)
+
+
+NamedParams = Iterable[Tuple[str, torch.nn.Parameter]]
+
+
+class _TorchPair:
+    """Two torch optimizers seen as one by the checkpoint and the mesh: their
+    param_groups and state side by side, one state_dict holding both."""
+
+    def __init__(self, main: torch.optim.Optimizer, disc: torch.optim.Optimizer):
+        self.parts = (main, disc)
+
+    @property
+    def param_groups(self) -> List[dict]:
+        return self.parts[0].param_groups + self.parts[1].param_groups
+
+    @property
+    def state(self) -> dict:
+        return {**self.parts[0].state, **self.parts[1].state}
+
+    def state_dict(self) -> dict:
+        # empty top-level "state": each part's torch state_dict sits in "parts"
+        return {"state": {}, "param_groups": [], "parts": [p.state_dict() for p in self.parts]}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        for opt, sd in zip(self.parts, state_dict["parts"]):
+            for s in sd["state"].values():  # a non-capturable optimizer keeps its steps on the host
+                if "step" in s:
+                    s["step"] = s["step"].cpu()
+            opt.load_state_dict(sd)
+
+
+class DiscriminatorSplitOptimizer:
+    """Two `Optimizer`s over disjoint parameters, each with its own schedule
+    and clipping, stepped together: the `Optimizer` interface, with one
+    state_dict (`optimizer`) for the checkpoint."""
+
+    def __init__(self, main: Optimizer, disc: Optimizer):
+        self.main, self.disc = main, disc
+        self.optimizer = _TorchPair(main.optimizer, disc.optimizer)
+
+    @property
+    def steps(self) -> int:
+        return self.main.steps
+
+    @steps.setter
+    def steps(self, value: int) -> None:
+        self.main.steps = self.disc.steps = value
+
+    def params(self):
+        return self.main.params() + self.disc.params()
+
+    def _set_lr(self):
+        self.main._set_lr()
+        self.disc._set_lr()
+
+    def load_state_dict(self, state_dict: dict, steps: int):
+        self.optimizer.load_state_dict(state_dict)
+        self.steps = steps
+        self._set_lr()
+
+    def zero_grad(self):
+        self.main.zero_grad()
+        self.disc.zero_grad()
+
+    def step(self):
+        self.main.step()
+        self.disc.step()
+
+
+def with_discriminator_optimizer(
+    main: Callable[[NamedParams], Optimizer],
+    disc: Callable[[NamedParams], Optimizer],
+    path_substring: str = "discriminator",
+) -> Callable[[NamedParams], DiscriminatorSplitOptimizer]:
+    """The reference's separate discriminator optimizer (training_loop.py:
+    563-569; JAX optimizer.py:119-147): a factory of the optimizer over
+    `named_params` in which the parameters whose name contains
+    `path_substring` step under `disc` and the rest under `main`. `main` and
+    `disc` build an `Optimizer` from named parameters, as
+    `functools.partial(make_optimizer, breed=..., lr=...)` does. Both states
+    go into the checkpoint's optimizer state. No release config has a
+    discriminator."""
+
+    def make(named_params: NamedParams) -> DiscriminatorSplitOptimizer:
+        named = list(named_params)
+        return DiscriminatorSplitOptimizer(main([(n, p) for n, p in named if path_substring not in n]),
+                                           disc([(n, p) for n, p in named if path_substring in n]))
+
+    return make

@@ -18,6 +18,7 @@ both packages' synthetic writers, and hand-made frames):
   - a tiny `Experiment.run` on a CO3D tree, with resume, and the hydrant
     config with the CO3D provider.
 """
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import gzip
 import json
 import logging

@@ -17,6 +17,7 @@ branch, FrameData's `src_*` fields) against the JAX package on the CPU:
   * a compact training step and compact `Experiment.run`s (scene cache,
     per-batch transform, chunked compact validation).
 """
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import sys
 

@@ -10,6 +10,7 @@ behaviours (tests/test_diffusion.py:208-313) on the port.
 Tolerances: float32 arithmetic in another order on O(1) values, 1e-5
 absolute (1e-6 relative on top); sums over ten steps and log-likelihoods
 in bits 2e-5; exact where both sides compute integers or copy values."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

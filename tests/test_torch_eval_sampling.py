@@ -17,6 +17,7 @@ a few ulps above zero and JAX counts one pixel more than eager arithmetic
 does (the port, and JAX's own function called eagerly). The same error on
 the mask's rays, `loss*_depth_abs_fg`, is compared, and `depth_abs` in the
 mask_sample cases."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import sys
 

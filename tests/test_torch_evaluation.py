@@ -10,6 +10,7 @@ Tolerances: SSIM is the same float64 numpy code on both sides, 1e-12 on the
 same images; on rendered images, which differ by float32 rounding, PSNR
 within 1e-3 dB, SSIM within 1e-5, depth error within 1e-4 and camera
 difficulty within 1e-6, with every bin's membership exact."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import json
 import os
 import sys

@@ -12,6 +12,7 @@ synthetic experiment of tests/test_experiment.py (`_tiny_synthetic_cfg`):
   (d) the port learns: an overfit run raises the train PSNR;
   (e) the train CLI, then sampling from its exp_dir.
 """
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import copy
 import os
 import sys

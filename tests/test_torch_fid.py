@@ -9,6 +9,7 @@ against JAX's `p_sample` with the same noise then `model.apply` per pose
 protocol and the CLI on a tiny trained run. Random extractors draw their
 weights from torch generators, so they are checked for determinism, never
 against JAX's."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import json
 import os
 import sys

@@ -14,6 +14,7 @@ slice holds at 1e-3: tests/test_torch_slice.py); progressive frames 1e-3,
 their grids going through float32 UNet steps on both sides (2e-4 there); the
 pooled grid of reconstruction mode 1e-4, as tests/test_torch_pooling.py
 holds it."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import struct
 import sys

@@ -3,6 +3,7 @@ against the JAX Pallas kernel in interpret mode, and the trilinear sampler
 against the JAX gather sampler. The CUDA kernel itself runs only on the card:
 tests/test_torch_kernels_cuda.py and chip_smoke.py hold it against the plain
 version there."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ custom VJP, which runs its Pallas backward kernel in interpret mode, and
 against torch autograd of the plain forward. The CUDA kernel itself runs
 only on the card: tests/test_torch_kernels_cuda.py and chip_smoke.py hold it
 against the plain version there."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ render, and the training render's objective and gradients with the same
 draws. Tolerances are the JAX package's own for these paths
 (tests/test_pallas_kernels.py): loss 1e-5 relative; gradients 5e-4
 absolute + 2e-3 relative; normals 5e-5 + 1e-4."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import functools
 import os
 

@@ -6,6 +6,7 @@ one 320^2 input (shrunk, antialiased as `jax.image.resize` shrinks) at
 2e-3 (the JAX package's tolerance for this 94-conv net), the count-excluding
 average pool at 1e-6, the 299^2 resize alone, and the weight loading and
 converters."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import sys
 

@@ -4,6 +4,7 @@ of ops/voxel.py) against the JAX package on the same numpy inputs, on the
 CPU: JAX runs its Pallas kernels in interpret mode at precision="highest".
 The CUDA kernels run only on the card (tests/test_torch_kernels_cuda.py and
 chip_smoke.py hold them against these plain versions)."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

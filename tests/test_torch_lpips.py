@@ -5,6 +5,7 @@ taps (1e-5 of each tap's scale) and the distance (1e-5 absolute) at 32 and
 without an LPIPS head file, and LPIPS in `Experiment.run_eval_only`. The
 JAX side gets its variables through `lpips_params_from_torch`, never
 `init`."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import sys
 

@@ -4,6 +4,7 @@ against the JAX package's library, bitwise; the PNG reader and writer
 (`data/image_io.py`) against PIL, bitwise; the JPEG path (PIL, as in JAX);
 `image_io.resize` against PIL's resize at stated tolerances; the build's
 failure without a compiler; the package data."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import fnmatch
 import glob
 import os

@@ -9,6 +9,7 @@ arithmetic in another order); the probe's raw densities 1e-5, and its masks
 equal at every cell whose raw density is more than 1e-4 from the threshold;
 renders 2e-4 on images, masks and normals and 1e-3 on depths, as the
 serving slice's chunked renders (tests/test_torch_slice.py)."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ round-trips bitwise (the buffers differ: the port aligns each leaf to 16
 bytes), the spec is taken lazily and guards structure and shapes, a packed
 step and a packed run are bitwise the unpacked ones, and a packer under a
 mesh raises."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import sys
 

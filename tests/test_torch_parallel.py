@@ -25,6 +25,7 @@ fails the test and not the run. The checks:
   * `initialize_distributed` is a no-op without torchrun's variables and
     raises on an unreachable store.
 """
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import datetime
 import os
 import socket

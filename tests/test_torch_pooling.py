@@ -2,6 +2,7 @@
 models/feature_extractor.py, models/view_pooler.py and
 `HoloDiffusionModel.pool_features`) against the JAX package on the same
 numpy inputs with converted weights, on the CPU. Float32 on both sides."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import sys
 

@@ -10,6 +10,7 @@ port, on the CPU.
   (b) apple.yaml, donut.yaml, teddybear.yaml and unet_with_no_diffusion.yaml
       ship as package data, translate to the JAX translators' model, loop,
       data and optimizer arguments, and take one narrow training step."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import sys
 

@@ -4,6 +4,7 @@ implicit function (JAX runs its Pallas kernel in interpret mode), and the
 chunked full-image render. Weights come from the JAX model through
 `state_dict_from_jax`; the RenderMLP is also held against the reference
 torch golden."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import functools
 import os
 

@@ -12,6 +12,7 @@ mesh path: the grid mesh bitwise, vertex normals and Gouraud colours 1e-5;
 the soft rasterizer 1e-4 on colours and alpha and 1e-3 on depth: its blend
 weights exp((z_inv - z_inv_max) / gamma) with gamma 1e-4 scale the float32
 rounding of each face's interpolated depth by 1e4."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ model forward with its t=0 re-denoise), against the JAX package with the
 same weights. Also: entry points refuse to run without CUDA unless asked for
 the CPU, the port imports nothing of JAX, no kernel launch is counted on
 the CPU, the config translation and the CLI."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import ast
 import os
 
@@ -168,7 +169,8 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     for new in ("models/lpips.py", "models/inception.py", "evaluation_fid.py", "evaluate_samples.py",
                 "utils/vis.py", "utils/profiling.py", "data/compact.py", "data/packing.py", "parallel/launch.py",
-                "parallel/mesh.py", "parallel/collectives.py"):
+                "parallel/mesh.py", "parallel/collectives.py", "parallel/spatial.py", "models/unet_variants.py",
+                "models/unet_gigagan.py", "import_reference_checkpoint.py"):
         assert os.path.join(REPO, "holo_diffusion_torch", new) in files, new
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "holo_diffusion_tpu")
     for path in files:

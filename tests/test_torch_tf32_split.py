@@ -16,6 +16,7 @@ difference every kernel-vs-plain tolerance already covers. Inputs are shaped
 as `chip_smoke.py`'s: the hydrant decoder (64 channels, 256 hidden units,
 seeded weights) on a tanh(randn) 16^3 x 64 grid, points inside and beyond it.
 """
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import pathlib
 import sys
 

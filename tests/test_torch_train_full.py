@@ -24,6 +24,7 @@ Tolerances (stated in each test): the objective 1e-4 and the gradients 2e-3
 of each leaf's scale, as the JAX package holds its own training step to
 these goldens (tests/test_holo_grad_parity.py); an SGD update is the
 gradient times the rate, so updates are held at 2e-3 of their scale too."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import copy
 import os
 import sys

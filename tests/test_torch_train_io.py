@@ -4,6 +4,7 @@ audit, the synthetic data source and its loaders (same seeds, same frames),
 checkpoint names, purge, resume and IO errors, a bitwise save/restore round
 trip, the config keys of features the port lacks (each raises, naming its
 ROADMAP item), and the package data that the CUDA build needs."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import copy
 import fnmatch
 import glob

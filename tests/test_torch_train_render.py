@@ -4,6 +4,7 @@ refinement, the MC splat, view metrics and the objective) against the JAX
 package on the CPU, with the same weights and the same draws: the JAX side
 draws from its keys (split as holo_model.py:498-500 and renderer.py:120-139
 split them), and the port is given those values."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import functools
 
 import jax

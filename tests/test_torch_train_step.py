@@ -8,6 +8,7 @@ same random draws; and `make_train_step` on a synthetic scene. (The
 training render's stratified and noisy draws are held against JAX in
 tests/test_torch_train_render.py: a whole-model `jax.grad` through the
 interpreted Pallas decode takes minutes on the CPU.)"""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 import sys
 

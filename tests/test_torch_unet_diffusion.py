@@ -1,6 +1,7 @@
 """The port's UNet and diffusion sampling against the JAX package and the
 reference torch goldens, on the CPU. Random draws are injected: the same
 numpy noise goes to both sides."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import os
 
 import jax

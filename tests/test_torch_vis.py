@@ -7,6 +7,7 @@ the denoising video, and a tiny run to one checkpoint with validation,
 visualizations, the denoising video and `profile` on, which leaves
 train_stats.pdf, dashboard.html, the PNGs and a trace where the JAX loop
 writes them (JAX experiment.py:593-723)."""
+import torch_threads  # noqa: F401  (one PyTorch thread a test process)
 import copy
 import json
 import logging
