@@ -88,9 +88,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
            float32 bound from their conv FLOPs; `run_eval_only` with
            `lpips_vgg_weights_path` over the tree's eval batches; then
            `Experiment.run` on synthetic scenes, 1 epoch of 2 steps with
-           validation, visualizations, the denoising video (1000 DDPM
-           steps, a chunked 512^2 frame every 50) and the profiler, and the
-           files it leaves (train_stats.pdf needs matplotlib)
+           validation, visualizations, the denoising video (a 250-step
+           schedule, cut from 1000 for time; a chunked 512^2 frame every
+           50 steps) and the profiler, and the files it leaves
+           (train_stats.pdf needs matplotlib)
   scale_out  compact sources, packed transfer and data parallelism at
            hydrant width on the CO3D tree: `Experiment.run` 2 epochs of 2
            steps with and without `compact_sources` (s per step, K2/K3 a
@@ -115,8 +116,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
            the attention and spatial pools, AsymmetricUNetModel) card
            against CPU; the extractor in bfloat16 against float32 on 30
            sources at 256^2
+  rehearsal  the release rehearsal (`holo_diffusion_torch/rehearsal.py`) at
+           hydrant width on the release tree (3 sequences x 40 frames at
+           900 x 1200): 2 epochs of 8 steps, one `Experiment.run` an epoch,
+           the second resuming from the first's checkpoint; after each epoch
+           the diffusion leg's probe on a fixed 9-frame validation batch, a
+           1000-step DDPM sample and its 256^2 render (PNG); s per epoch and
+           step, peak and resting memory by epoch (growth bounded); the
+           probes of a narrow model card vs CPU
   kernels summary, the card's name and power limit, and the result line.
-Twenty-one main paths, each with the launch counters zeroed right before it and
+Twenty-two main paths, each with the launch counters zeroed right before it and
 read right after it: serving (`sample` + `render`, which must launch K1 and
 K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
 steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
@@ -134,7 +143,9 @@ twice a chunk of each target) and the loop with visualizations (K2 twice a
 step, K3 twice a step and twice a chunk of each validation and video
 frame); then the compact loop's (K2 twice a step, K3 twice a step and twice
 a chunk of each validation frame, nothing else); then the sharded sampling
-loop and the ray-sharded frame (K3 exactly twice, nothing else).
+loop and the ray-sharded frame (K3 exactly twice, nothing else); then the
+rehearsal's 2 epochs (K2 twice a step, K3 twice a step and twice a chunk of
+each 512^2 validation frame and 256^2 snapshot, nothing else).
 Float32 stays full float32 (TF32 off for cuDNN and cuBLAS).
 """
 import contextlib
@@ -220,6 +231,14 @@ UNET_FAMILY_TOL = 1e-3
 # features' scale: bfloat16 keeps 8 bits of mantissa through 36 convolutions
 # (a bound on the drift, not a parity check)
 EXTRACTOR_BF16_TOL = 0.1
+# the rehearsal's probes on a narrow model, card against CPU, of the pooled
+# grid's scale and of each timestep's MSE: the extractor and the UNet, float32
+REHEARSAL_PROBE_TOL = 1e-3
+# memory growth from the rehearsal's first epoch to its second: its peak
+# (a leaked Adam state of hydrant is 1.49 GB, a model copy 0.75 GB) and what
+# stays allocated between epochs (the model and its buffers)
+REHEARSAL_PEAK_GROWTH_GIB = 0.25
+REHEARSAL_REST_GROWTH_GIB = 1 / 64
 
 
 def emit(obj):
@@ -1988,8 +2007,9 @@ def quality_phase(here, dev, results):
     with `lpips_vgg_weights_path` over the tree's eval batches (`lpips_eval`:
     K3 twice a chunk of each 800^2 target). Then `Experiment.run` on
     synthetic scenes, 1 epoch of 2 steps with validation, visualizations,
-    the denoising video (1000 DDPM steps, a 512^2 chunked frame every 50)
-    and the profiler on (`vis_loop`: K2 twice a step, K3 twice a step and
+    the denoising video (a 250-step schedule, cut from hydrant's 1000 to
+    keep the script's time; a 512^2 chunked frame every 50 steps) and the
+    profiler on (`vis_loop`: K2 twice a step, K3 twice a step and
     820 times a validation or video frame), and the files it leaves."""
     import importlib.util
 
@@ -2132,7 +2152,8 @@ def quality_phase(here, dev, results):
         syn + "n_scenes=2", syn + "n_views_per_scene=33", syn + "image_size=800",
         dl + "batch_size=33", dl + "dataset_length_train=66", dl + "dataset_length_val=1",
         "disable_validation=false", loop + "validation_interval=1", loop + "visualize_interval=1",
-        "visualize_denoising_video=true", loop + "profile=true", loop + "profile_steps=2", f"exp_dir={exp_dir}"])
+        "visualize_denoising_video=true", loop + "profile=true", loop + "profile_steps=2", f"exp_dir={exp_dir}",
+        f"{HYDRANT_MODEL}.diffusion_args.num_steps=250"])
     records = _Records()
     loggers = [logging.getLogger(n) for n in ("holo_diffusion_torch.experiment", "holo_diffusion_torch.utils.profiling")]
     for lg in loggers:
@@ -2787,6 +2808,126 @@ def model_parallel_phase(here, dev, results):
         raise AssertionError(f"model_parallel: {fails} beyond tolerance")
 
 
+def rehearsal_phase(here, dev, results):
+    """The release rehearsal (`holo_diffusion_torch/rehearsal.py`) at
+    hydrant width on the release tree (3 sequences x 40 frames at 900 x
+    1200, written first; random weights from the config's seed), cut to 2
+    epochs x 8 steps with the probes after each epoch: one `Experiment.run`
+    an epoch on one `Experiment`, the second resuming from the first's
+    checkpoint; after each, the diffusion leg's probe on a fixed 9-frame
+    validation batch, a 1000-step DDPM sample and its 256^2 render. Main
+    path `rehearsal`: K2 exactly twice a step, K3 twice a step, twice a
+    chunk of each 512^2 validation frame and of each 256^2 snapshot, no
+    K1 or K4-K7. Checks: the curve finite, the second epoch resumed (the
+    loop's log and the step count), each PNG 256 x 256 x 3 and not
+    constant, peak and resting memory growth from epoch 0 to epoch 1
+    within REHEARSAL_*_GROWTH_GIB; then `pooled_grid` and `denoise_leg_mse`
+    on a narrow model, card against CPU (REHEARSAL_PROBE_TOL)."""
+    import numpy as np
+    import torch
+
+    from holo_diffusion_torch.config import load_config, model_args_from_config
+    from holo_diffusion_torch.data.synthetic import make_synthetic_scene
+    from holo_diffusion_torch.data.synthetic_co3d import RELEASE_ROOT, ensure_release_tree
+    from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.rehearsal import PROBE_TS, denoise_leg_mse, pooled_grid, run_rehearsal
+    from holo_diffusion_torch.weights import init_weights
+
+    t_phase = time.perf_counter()
+    existed = os.path.exists(os.path.join(RELEASE_ROOT, ".done"))
+    t0 = time.perf_counter()
+    ensure_release_tree()
+    tree_s = time.perf_counter() - t0
+    out_dir = os.path.join(here, "build", "chip_smoke", "rehearsal")
+    exp_dir = os.path.join(here, "build", "chip_smoke", "rehearsal_exp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    epochs_n, steps_n = 2, 8
+    exp_log = logging.getLogger("holo_diffusion_torch.experiment")
+    exp_log.setLevel(logging.INFO)
+    records = _Records()
+    exp_log.addHandler(records)
+    reset_launch_counts_all()
+    t0 = time.perf_counter()
+    try:
+        summary, epochs = run_rehearsal(epochs_n, out_dir, exp_dir, steps_per_epoch=steps_n, device=dev)
+    finally:
+        exp_log.removeHandler(records)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts_all()
+    emit({"phase": "main_path", "path": "rehearsal", "launches": counts})
+    # K3 launches a chunked frame: 2 passes a chunk of 640 rays (hydrant's
+    # chunk_size_grid 40960 over 64 points a ray)
+    margs = model_args_from_config(load_config("hydrant"))
+    rays_per_chunk = margs["chunk_size_grid"] // margs["n_pts_per_ray_evaluation"]
+    val_frame = margs["num_passes"] * math.ceil(
+        margs["render_image_height"] * margs["render_image_width"] / rays_per_chunk)
+    snapshot = margs["num_passes"] * math.ceil(256 * 256 / rays_per_chunk)
+    steps = epochs_n * steps_n
+    expected = {"fused_decode_bwd": 2 * steps,
+                "fused_decode_fwd_normals": 2 * steps + epochs_n * (val_frame + snapshot)}
+    expect_launches(counts, "rehearsal", exactly=expected,
+                    none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["fused_decode_bwd"]["rehearsal_launches"] = counts["fused_decode_bwd"]
+    results["fused_decode_fwd_normals"]["rehearsal_launches"] = counts["fused_decode_fwd_normals"]
+
+    curve = summary["curve"]
+    finite = all(math.isfinite(x) for rec in curve for x in
+                 [v for v in rec.values() if isinstance(v, float)] + list(rec["denoise_mse_per_t"].values()))
+    resumed = [r.getMessage() for r in records.records if r.getMessage().startswith("resumed from epoch")]
+    pngs = {}
+    for rec in curve:
+        img = read_png_rgb(rec["sample_png"])
+        pngs[os.path.basename(rec["sample_png"])] = {"shape": list(img.shape), "std": float(img.std()),
+                                                     "mean": float(img.mean())}
+    with open(os.path.join(exp_dir, "train_stats.json")) as f:
+        hist = json.load(f)["history"]
+    growth = {"peak_gib": epochs[1]["peak_gib"] - epochs[0]["peak_gib"],
+              "resting_gib": epochs[1]["resting_gib"] - epochs[0]["resting_gib"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the probes on a narrow model: card against CPU
+    cpu_model = init_weights(HoloDiffusionModel(**narrow_model_args()), seed=1)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    scene = make_synthetic_scene(n_views=6, image_size=48, seed=2, device="cpu")
+    grids = {label: pooled_grid(m, scene) for label, m in (("card", card_model), ("cpu", cpu_model))}
+    grid_err = scale_diff(grids["card"].cpu(), grids["cpu"])
+    noise = torch.from_numpy(np.random.RandomState(4).randn(1, *grids["cpu"].shape).astype(np.float32))
+    mses = {label: denoise_leg_mse(m, m.schedule, grids["cpu"][None].to(d), noise.to(d)).cpu()
+            for label, m, d in (("card", card_model, dev), ("cpu", cpu_model, "cpu"))}
+    mse_rel = float(((mses["card"] - mses["cpu"]).abs() / mses["cpu"].abs()).max())
+    del cpu_model, card_model, grids
+    phase_s = time.perf_counter() - t_phase
+
+    emit({"phase": "rehearsal", "tree": {"written": not existed, "write_s": tree_s},
+          "epochs": epochs_n, "steps_per_epoch": steps_n, "run_s": run_s, "phase_s": phase_s,
+          "phase_s_without_tree": phase_s - tree_s, "resumed": resumed,
+          "per_epoch": epochs, "s_per_step_stats": [h["train"]["sec/it"] for h in hist],
+          "val_s_per_batch": [h["val"]["sec/it"] for h in hist], "memory_growth": growth,
+          "curve": [{k: v for k, v in rec.items() if k != "sample_png"} for rec in curve], "pngs": pngs,
+          "launches": counts, "launches_expected": expected, "finite": finite,
+          "card_vs_cpu": {"pooled_grid_of_scale": grid_err, "denoise_mse_rel": mse_rel,
+                          "denoise_mse": {k: v.tolist() for k, v in mses.items()}, "timesteps": list(PROBE_TS)},
+          "tol": {"probe": REHEARSAL_PROBE_TOL, "peak_growth_gib": REHEARSAL_PEAK_GROWTH_GIB,
+                  "resting_growth_gib": REHEARSAL_REST_GROWTH_GIB}})
+    fails = []
+    if not finite:
+        fails.append("non-finite curve")
+    if [e["step"] for e in epochs] != [steps_n, 2 * steps_n] or resumed != ["resumed from epoch 0"]:
+        fails.append(f"resume: steps {[e['step'] for e in epochs]}, log {resumed}")
+    if any(p["shape"] != [256, 256, 3] or p["std"] == 0.0 for p in pngs.values()) or len(pngs) != epochs_n:
+        fails.append(f"pngs {pngs}")
+    if growth["peak_gib"] > REHEARSAL_PEAK_GROWTH_GIB or growth["resting_gib"] > REHEARSAL_REST_GROWTH_GIB:
+        fails.append(f"memory growth {growth}")
+    if grid_err > REHEARSAL_PROBE_TOL or mse_rel > REHEARSAL_PROBE_TOL:
+        fails.append(f"probes card vs cpu {grid_err}, {mse_rel}")
+    if fails:
+        raise AssertionError(f"rehearsal: {fails}")
+
+
 @contextlib.contextmanager
 def deterministic():
     """Deterministic algorithms (PyTorch's sort-based index accumulation,
@@ -3021,6 +3162,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     model_parallel_phase(here, dev, results)
+
+    # ---- the release rehearsal: 2 epochs of 8 steps with the probes, on the release tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    rehearsal_phase(here, dev, results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
     print(smi, flush=True)

@@ -12,18 +12,30 @@ end without CO3D.
 The scenes are shaded spheres with a procedural texture and sensor noise
 (so a JPEG decodes at a realistic cost), seen from a fly-around of poses at
 CO3D's portrait aspect (900 x 1200).
+
+`ensure_release_tree` writes (once) the tree the release rehearsals train
+on (3 sequences x 40 frames at 900 x 1200) and `release_provider` reads it
+as the hydrant recipe does; counterparts of bench.py's
+`_ensure_synth_co3d` and `_release_provider`.
 """
 from __future__ import annotations
 
 import gzip
 import json
 import os
-from typing import Tuple
+from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ..geometry.cameras import look_at_view_transform
+from .co3d import CO3DDataProvider
 from .image_io import write_jpeg, write_png
+
+# the release rehearsals' tree: 3 sequences x 40 frames at CO3D's 900 x 1200
+RELEASE_CATEGORY = "synthball"
+RELEASE_SEQUENCES, RELEASE_FRAMES = 3, 40
+RELEASE_ROOT = Path(__file__).resolve().parents[2] / "build" / "synthetic_co3d_release"
 
 
 def _render_sphere_frame(
@@ -48,7 +60,10 @@ def _render_sphere_frame(
     py = cy - s * (focal_ndc_iso[1] * v0 + pp_ndc_iso[1])
     r_px = s * float(focal_ndc_iso[0]) * radius / z0
 
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    # a column and a row that broadcast: the same float32 values as full
+    # (H, W) coordinate grids, without building them
+    yy = np.arange(H, dtype=np.float32)[:, None]
+    xx = np.arange(W, dtype=np.float32)[None, :]
     d2 = ((xx - px) ** 2 + (yy - py) ** 2) / max(r_px, 1.0) ** 2
     inside = d2 < 1.0
     nz = np.sqrt(np.clip(1.0 - d2, 0.0, 1.0))  # the sphere normal's z (approximate)
@@ -155,3 +170,27 @@ def write_synthetic_co3d(
     with open(os.path.join(cat_dir, "eval_batches", "eval_batches_fewview_dev.json"), "w") as f:
         json.dump(eval_batches, f)
     return category
+
+
+def ensure_release_tree(root: Optional[str] = None) -> str:
+    """Write the release rehearsals' tree under `root` (default
+    `build/synthetic_co3d_release` beside the package) unless its `.done`
+    marker says it is complete; returns its category."""
+    root = str(root or RELEASE_ROOT)
+    marker = os.path.join(root, ".done")
+    if not os.path.exists(marker):
+        write_synthetic_co3d(root, category=RELEASE_CATEGORY, n_seq=RELEASE_SEQUENCES,
+                             n_frames=RELEASE_FRAMES, H=900, W=1200)
+        open(marker, "w").close()
+    return RELEASE_CATEGORY
+
+
+def release_provider(root: Optional[str] = None, category: str = RELEASE_CATEGORY, image_height: int = 800,
+                     image_width: int = 800) -> CO3DDataProvider:
+    """The tree under `root` (default the release tree) as the hydrant
+    recipe loads it: `fewview_dev`, box crop, frames at 800^2, at most 4
+    decoded sequences cached."""
+    return CO3DDataProvider(
+        category=category, dataset_root=str(root or RELEASE_ROOT), subset_name="fewview_dev",
+        image_height=image_height, image_width=image_width, box_crop=True, max_cached_scenes=4,
+    )

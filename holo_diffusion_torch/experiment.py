@@ -512,7 +512,9 @@ class Experiment:
                 except ImportError as e:
                     if not (e.name or "").startswith("matplotlib"):
                         raise
-                    logger.warning("stats plot failed: %s", e)
+                    # not `e`: a handler that keeps records would keep its
+                    # traceback, and with it this frame's state, alive
+                    logger.warning("stats plot failed: %s", str(e))
             # every rank resumes from what rank 0 wrote
             launch.barrier()
         if testing and self.loop_args["test_when_finished"] and main:

@@ -82,7 +82,7 @@ def save_checkpoint(exp_dir: str, epoch: int, state, stats=None, purge: int = 1)
             for _, p in list_checkpoints(exp_dir)[:-purge]:
                 shutil.rmtree(p, ignore_errors=True)
     except (OSError, RuntimeError) as e:  # keep training alive on IO errors
-        logger.warning("checkpoint save failed: %s", e)
+        logger.warning("checkpoint save failed: %s", str(e))  # not `e`: its traceback holds the state
 
 
 def restore_checkpoint(exp_dir: str, state_like, epoch: int = -1):

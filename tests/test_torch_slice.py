@@ -170,9 +170,10 @@ def test_port_imports_no_jax():
     for new in ("models/lpips.py", "models/inception.py", "evaluation_fid.py", "evaluate_samples.py",
                 "utils/vis.py", "utils/profiling.py", "data/compact.py", "data/packing.py", "parallel/launch.py",
                 "parallel/mesh.py", "parallel/collectives.py", "parallel/spatial.py", "models/unet_variants.py",
-                "models/unet_gigagan.py", "import_reference_checkpoint.py"):
+                "models/unet_gigagan.py", "import_reference_checkpoint.py", "rehearsal.py",
+                "data/synthetic_co3d.py"):
         assert os.path.join(REPO, "holo_diffusion_torch", new) in files, new
-    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "holo_diffusion_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "holo_diffusion_tpu", "bench", "scripts")
     for path in files:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in banned, f"{path} imports {mod}"
