@@ -294,6 +294,16 @@ def decode_bwd_cost(n_points, n_rays, grid_shape, hidden, pe_dim):
     return n_bytes, n_points * (fwd + bwd), n_bytes + 4 * 2 * 8 * C * n_points
 
 
+def device_rows(prof):
+    """The device rows of a torch.profiler window: kernels, copies and
+    fills. The device mirrors of host annotations (the port's `holo.*`
+    spans, on while a profiler records) each cover the kernels under them
+    and are left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def device_ms_per_launch(fn, name_part, iters=20, attempts=3):
     """Device time per launch of the kernel whose name contains `name_part`,
     from torch.profiler over `iters` calls of `fn` (after one warm-up). The
@@ -301,7 +311,6 @@ def device_ms_per_launch(fn, name_part, iters=20, attempts=3):
     `iters` launches is discarded and profiled again, up to `attempts`
     times."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -312,8 +321,7 @@ def device_ms_per_launch(fn, name_part, iters=20, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and name_part in e.key and e.self_device_time_total > 0]
+        rows = [e for e in device_rows(prof) if name_part in e.key and e.self_device_time_total > 0]
         counts.append(sum(e.count for e in rows))
         if counts[-1] == iters:
             return sum(e.self_device_time_total for e in rows) / 1e3 / iters
@@ -839,7 +847,6 @@ def profile_phase(model, unfused, v, dev, train_step_fn, unfused_train_step_fn):
     the port's kernels' share of the busy time. Returns the device busy ms
     by window."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from holo_diffusion_torch.render_eval import render_image_chunked
@@ -867,8 +874,8 @@ def profile_phase(model, unfused, v, dev, train_step_fn, unfused_train_step_fn):
             fn()
             torch.cuda.synchronize()
         rows = sorted(
-            ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+            ((e.key, e.self_device_time_total / 1e3, e.count) for e in device_rows(prof)
+             if e.self_device_time_total > 0),
             key=lambda r: -r[1],
         )
         busy_ms = sum(r[1] for r in rows)
@@ -1345,7 +1352,6 @@ def co3d_phase(here, dev, results):
     uint8/float16 batch at 800^2."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from holo_diffusion_torch.config import data_source_args_from_config, load_config
@@ -1454,8 +1460,7 @@ def co3d_phase(here, dev, results):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, _ = step(state, b, gen)
         torch.cuda.synchronize()
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in device_rows(prof)) / 1e3
     del b
 
     # ---- a cache of one scene: every scene switch decodes cold
@@ -1514,7 +1519,6 @@ def profiled_device_ms(fn, n):
     """(device busy ms per call, kernel launches per call) of `fn` over n
     calls, from torch.profiler; the device's idle gaps are not counted."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1522,7 +1526,7 @@ def profiled_device_ms(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = device_rows(prof)
     return sum(e.self_device_time_total for e in events) / 1e3 / n, sum(e.count for e in events) / n
 
 

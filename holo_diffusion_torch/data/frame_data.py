@@ -48,6 +48,12 @@ class FrameData:
     def to(self, device, non_blocking: bool = False) -> "FrameData":
         return self._map(lambda x: x.to(device, non_blocking=non_blocking))
 
+    def nbytes(self) -> int:
+        """The bytes of the batch's tensors, the camera's included."""
+        leaves = [getattr(self.camera, f.name) for f in dataclasses.fields(self.camera)]
+        leaves += [getattr(self, f.name) for f in dataclasses.fields(self)[1:]]
+        return sum(x.nbytes for x in leaves if x is not None)
+
     def pin_memory(self) -> "FrameData":
         """A copy of a CPU batch in page-locked memory, so that
         `.to(card, non_blocking=True)` copies asynchronously. PyTorch's

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike
+from ..utils.profiling import span
 from .frame_data import FrameData
 from .synthetic import make_synthetic_scene
 
@@ -155,7 +156,8 @@ class AsyncLoader:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with span("holo.data.wait"):
+                item = self._q.get()
             if item is _SENTINEL:
                 self._thread.join()
                 if self._err is not None:

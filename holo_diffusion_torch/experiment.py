@@ -70,7 +70,7 @@ from .render_eval import render_image_chunked
 from .train.checkpoint import restore_checkpoint, save_checkpoint
 from .train.optimizer import make_lr_schedule, make_optimizer
 from .train.stats import Stats
-from .utils.profiling import SteadyStateProfiler, enable_anomaly_detection
+from .utils.profiling import SteadyStateProfiler, count, enable_anomaly_detection, span
 from .utils.vis import denoising_video, plot_stats_pdf, visualize_preds, write_dashboard_html
 from .weights import init_weights, load_resnet_state_dict
 
@@ -186,10 +186,14 @@ class Experiment:
     def _to_device(self, batch: FrameData) -> FrameData:
         """A batch on the device. A host batch bound for the card is pinned
         first, so its copy is asynchronous (in the loader's thread, it
-        overlaps the step before)."""
-        if batch.device.type == "cpu" and self.device.type == "cuda":
-            batch = batch.pin_memory()
-        return batch.to(self.device, non_blocking=True)
+        overlaps the step before); its bytes go to the `h2d_bytes` and
+        `h2d_batches` counters."""
+        with span("holo.data.to_device"):
+            if batch.device.type == "cpu" and self.device.type == "cuda":
+                batch = batch.pin_memory()
+                count("h2d_bytes", batch.nbytes())
+                count("h2d_batches", 1)
+            return batch.to(self.device, non_blocking=True)
 
     def init_state(self) -> TrainState:
         """The seeded initialisation (weights.init_weights, drawn on the

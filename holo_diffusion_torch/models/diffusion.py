@@ -21,6 +21,8 @@ from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 PREVIOUS_X = "PREVIOUS_X"
 START_X = "START_X"
 EPSILON = "EPSILON"
@@ -380,7 +382,8 @@ def p_sample_loop_progressive(
     for i, t_scalar in enumerate(ts):
         t = torch.full((shape[0],), t_scalar, dtype=torch.long, device=device)
         n = None if step_noise is None else step_noise[i].to(device)
-        out = p_sample(sched, model_fn, x, t, n, generator, clip_denoised, denoised_fn)
+        with span("holo.ddpm"):
+            out = p_sample(sched, model_fn, x, t, n, generator, clip_denoised, denoised_fn)
         x = out["sample"]
         yield out
 

@@ -20,6 +20,7 @@ from ..geometry.rays import RayBundle, sample_rays_from_mask, sample_rays_full_g
 from ..ops.splat import rasterize_sparse_rays
 from ..ops.voxel import voxel_coord_grid
 from ..random_draws import Draws
+from ..utils.profiling import span
 from . import diffusion as gd
 from .feature_extractor import ResNetFeatureExtractor
 from .implicit import VoxelGridImplicitFunction
@@ -182,11 +183,13 @@ class HoloDiffusionModel(nn.Module):
         centres, mapper, tanh. `prerescaled`: the views come at the
         extractor's input resolution (compact sources), so its resize is
         skipped."""
-        feats = self.image_feature_extractor(as_unit_float(image_rgb), as_unit_float(fg_probability),
-                                             rescale_done=prerescaled)
-        pts = voxel_coord_grid(self.resol, self.volume_extent, device=image_rgb.device).reshape(-1, 3)
-        pooled = self.view_pooler(feats, cameras, pts, as_unit_float(mask_crop))
-        v = torch.tanh(self.pooled_feature_mapper(pooled))
+        with span("holo.extract"):
+            feats = self.image_feature_extractor(as_unit_float(image_rgb), as_unit_float(fg_probability),
+                                                 rescale_done=prerescaled)
+        with span("holo.pool"):
+            pts = voxel_coord_grid(self.resol, self.volume_extent, device=image_rgb.device).reshape(-1, 3)
+            pooled = self.view_pooler(feats, cameras, pts, as_unit_float(mask_crop))
+            v = torch.tanh(self.pooled_feature_mapper(pooled))
         return v.reshape(self.resol, self.resol, self.resol, self.feature_size)
 
     def denoise(
@@ -313,29 +316,30 @@ class HoloDiffusionModel(nn.Module):
         mode asks for draws and `draws` is given, as the JAX package draws
         from an evaluation key (mask sampling needs one; without it a
         stratified full-grid render is deterministic)."""
-        mode = self.sampling_mode_training if training else self.sampling_mode_evaluation
-        stratified = (self.stratified_point_sampling_training if training
-                      else self.stratified_point_sampling_evaluation)
-        n_pts = self.n_pts_per_ray_training if training else self.n_pts_per_ray_evaluation
-        if training or mode == "mask_sample" or draws is not None:
-            draws = Draws.of(draws)
-        B, dev = cameras.batch_size, voxel_grid.device
-        H, W = self.render_image_height, self.render_image_width
-        n_rays = self.n_rays_per_image if mode == "mask_sample" else H * W
-        u_len = None
-        if stratified and draws is not None:
-            u_len = draws.uniform("ray_length_u", (B, n_rays, n_pts), dev)
-        if mode == "mask_sample":
-            if mask_crop is None:
-                raise ValueError("mask_sample ray sampling needs mask_crop")
-            mask = mask_crop[..., 0] if mask_crop.ndim == 4 else mask_crop
-            bundle = sample_rays_from_mask(
-                cameras, mask, n_pts, draws.uniform("ray_pixel_u", (B, n_rays), dev), u_len,
-                self.scene_center, self.scene_extent)
-        else:
-            bundle = sample_rays_full_grid(
-                cameras, H, W, n_pts, self.scene_center, self.scene_extent, u_len)
-        return self.render_rays(voxel_grid, bundle, training, draws), bundle
+        with span("holo.render"):
+            mode = self.sampling_mode_training if training else self.sampling_mode_evaluation
+            stratified = (self.stratified_point_sampling_training if training
+                          else self.stratified_point_sampling_evaluation)
+            n_pts = self.n_pts_per_ray_training if training else self.n_pts_per_ray_evaluation
+            if training or mode == "mask_sample" or draws is not None:
+                draws = Draws.of(draws)
+            B, dev = cameras.batch_size, voxel_grid.device
+            H, W = self.render_image_height, self.render_image_width
+            n_rays = self.n_rays_per_image if mode == "mask_sample" else H * W
+            u_len = None
+            if stratified and draws is not None:
+                u_len = draws.uniform("ray_length_u", (B, n_rays, n_pts), dev)
+            if mode == "mask_sample":
+                if mask_crop is None:
+                    raise ValueError("mask_sample ray sampling needs mask_crop")
+                mask = mask_crop[..., 0] if mask_crop.ndim == 4 else mask_crop
+                bundle = sample_rays_from_mask(
+                    cameras, mask, n_pts, draws.uniform("ray_pixel_u", (B, n_rays), dev), u_len,
+                    self.scene_center, self.scene_extent)
+            else:
+                bundle = sample_rays_full_grid(
+                    cameras, H, W, n_pts, self.scene_center, self.scene_extent, u_len)
+            return self.render_rays(voxel_grid, bundle, training, draws), bundle
 
     def forward(
         self,
@@ -417,8 +421,10 @@ class HoloDiffusionModel(nn.Module):
             voxel_features[0], camera[:n_targets], training, draws, targets(mask_crop))
         preds["rendered"] = rendered
         preds["ray_bundle"] = ray_bundle
-        preds.update(multipass_view_metrics(
-            rendered, ray_bundle.xys, targets(image_rgb), targets(depth_map), targets(fg_probability)))
+        with span("holo.loss"):
+            preds.update(multipass_view_metrics(
+                rendered, ray_bundle.xys, targets(image_rgb), targets(depth_map), targets(fg_probability)))
+            preds["objective"] = get_objective(preds, self.loss_weights)
 
         H, W = self.render_image_height, self.render_image_width
         if (self.sampling_mode_training if training else self.sampling_mode_evaluation) == "mask_sample":
@@ -432,5 +438,4 @@ class HoloDiffusionModel(nn.Module):
             preds["masks_render"] = rendered.masks.reshape(n_targets, H, W, 1)
             if rendered.normals is not None:
                 preds["normals_render"] = rendered.normals.reshape(n_targets, H, W, 3)
-        preds["objective"] = get_objective(preds, self.loss_weights)
         return preds

@@ -28,6 +28,7 @@ from ..ops.fused_decode import fused_sample_decode, kernels_take
 from ..ops.fused_render import trilinear_sample_onehot_xla, trilinear_sample_pallas
 from ..ops.kron_sample import DEFAULT_MAX_GC, trilinear_point_gradient, trilinear_sample_fused
 from ..ops.voxel import pack_corner_grid, sample_packed_voxel_grid_world, sample_voxel_grid_world
+from ..utils.profiling import span
 from .render_mlp import RenderMLP
 
 SAMPLERS = ("auto", "fused", "packed", "gather", "pallas", "onehot_xla")
@@ -104,6 +105,10 @@ class VoxelGridImplicitFunction(nn.Module):
         """voxel_grid: (D, H, W, C); ray_points_world: (..., P, 3);
         ray_directions: (..., 3) per ray, or None (unit ones, the pts_3d path,
         holo_voxel_grid_implicit_function.py:232-238)."""
+        with span("holo.decode"):
+            return self._decode(voxel_grid, ray_points_world, ray_directions)
+
+    def _decode(self, voxel_grid, ray_points_world, ray_directions):
         mlp = self.render_mlp
         fuse = self.fuse_decode
         if fuse == "auto":

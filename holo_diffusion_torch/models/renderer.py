@@ -18,6 +18,7 @@ import torch
 
 from ..geometry.rays import RayBundle, importance_sample_lengths, ray_bundle_to_ray_points
 from ..random_draws import Draws
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -104,34 +105,35 @@ def multipass_ea_render(
     B, N = lengths.shape[:2]
     output = None
     for pass_number in range(num_passes):
-        if pass_number > 0:
-            u = None
-            if draws is not None and stratified_sampling_coarse:
-                u = draws.uniform(f"refine_u_{pass_number}", (B, N, n_pts_per_ray_fine), lengths.device)
-            lengths = importance_sample_lengths(
-                lengths, output.weights.detach(), n_pts_per_ray_fine, u,
-                append_coarse=append_coarse_samples_to_fine,
+        with span("holo.render.coarse" if pass_number == 0 else "holo.render.fine"):
+            if pass_number > 0:
+                u = None
+                if draws is not None and stratified_sampling_coarse:
+                    u = draws.uniform(f"refine_u_{pass_number}", (B, N, n_pts_per_ray_fine), lengths.device)
+                lengths = importance_sample_lengths(
+                    lengths, output.weights.detach(), n_pts_per_ray_fine, u,
+                    append_coarse=append_coarse_samples_to_fine,
+                )
+            bundle = ray_bundle.replace(lengths=lengths)
+            densities, features, aux = implicit_fn(
+                ray_bundle_to_ray_points(bundle), bundle.directions, pass_number
             )
-        bundle = ray_bundle.replace(lengths=lengths)
-        densities, features, aux = implicit_fn(
-            ray_bundle_to_ray_points(bundle), bundle.directions, pass_number
-        )
-        noise = None
-        if noise_std > 0:
-            noise = noise_std * draws.normal(f"density_noise_{pass_number}", lengths.shape, lengths.device)
-        feat, depth, mask, weights = emission_absorption_raymarcher(
-            densities, features, lengths,
-            surface_thickness=surface_thickness,
-            background_opacity=background_opacity,
-            replicate_last_interval=replicate_last_interval,
-            density_relu=density_relu,
-            density_noise=noise,
-        )
-        normals = None
-        if "normals" in aux:
-            normals = torch.einsum("bnp,bnpc->bnc", weights, aux.pop("normals"))
-        output = RendererOutput(
-            features=feat, depths=depth, masks=mask, normals=normals,
-            weights=weights, prev_stage=output, aux=aux,
-        )
+            noise = None
+            if noise_std > 0:
+                noise = noise_std * draws.normal(f"density_noise_{pass_number}", lengths.shape, lengths.device)
+            feat, depth, mask, weights = emission_absorption_raymarcher(
+                densities, features, lengths,
+                surface_thickness=surface_thickness,
+                background_opacity=background_opacity,
+                replicate_last_interval=replicate_last_interval,
+                density_relu=density_relu,
+                density_noise=noise,
+            )
+            normals = None
+            if "normals" in aux:
+                normals = torch.einsum("bnp,bnpc->bnc", weights, aux.pop("normals"))
+            output = RendererOutput(
+                features=feat, depths=depth, masks=mask, normals=normals,
+                weights=weights, prev_stage=output, aux=aux,
+            )
     return output

@@ -27,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
+
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _AVG_POOL = {1: nn.AvgPool1d, 2: nn.AvgPool2d, 3: nn.AvgPool3d}
 
@@ -334,17 +336,18 @@ class UNetModel3D(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond_features=None, y=None) -> torch.Tensor:
         """x: (B, *spatial, C) channels-last; timesteps: (B,); cond_features
         (B, *spatial, C') or None; y: (B,) labels -> (B, *spatial, out)."""
-        if cond_features is not None:
-            x = torch.cat([x, cond_features], dim=-1)
-        with self.autocast(x.device.type):
-            emb = self.embed(timesteps, y)
-            h = self.to_channels_first(x)
-            hs = []
-            for block in self.input_blocks:
-                h = block(h, emb)
-                hs.append(h)
-            h = self.middle_block(h, emb)
-            for block in self.output_blocks:
-                h = block(torch.cat([h, hs.pop()], dim=1), emb)
-            # the JAX model returns to the input's dtype before the out norm
-            return self.to_channels_last(self.out(h.to(x.dtype)))
+        with span("holo.unet"):
+            if cond_features is not None:
+                x = torch.cat([x, cond_features], dim=-1)
+            with self.autocast(x.device.type):
+                emb = self.embed(timesteps, y)
+                h = self.to_channels_first(x)
+                hs = []
+                for block in self.input_blocks:
+                    h = block(h, emb)
+                    hs.append(h)
+                h = self.middle_block(h, emb)
+                for block in self.output_blocks:
+                    h = block(torch.cat([h, hs.pop()], dim=1), emb)
+                # the JAX model returns to the input's dtype before the out norm
+                return self.to_channels_last(self.out(h.to(x.dtype)))

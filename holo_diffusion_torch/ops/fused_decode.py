@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .kron_sample import check_flat_index, kron_sample_dpoints_reference
 from .voxel import continuous_indices, sample_voxel_grid_world
 
@@ -348,9 +349,10 @@ class FusedSampleDecode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_density, d_rgb, *unused):
-        grid, A, c, Wr, br, points, pe_dirs = ctx.saved_tensors
-        g = torch.cat([d_density, d_rgb], dim=-1)
-        grads = _backward(grid, A, c, Wr, br, points, pe_dirs, ctx.extent, ctx.hidden, g)
+        with span("holo.decode.bwd"):
+            grid, A, c, Wr, br, points, pe_dirs = ctx.saved_tensors
+            g = torch.cat([d_density, d_rgb], dim=-1)
+            grads = _backward(grid, A, c, Wr, br, points, pe_dirs, ctx.extent, ctx.hidden, g)
         return (*grads, None, None, None, None, None)
 
 

@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from ..models import diffusion as gd
+from ..utils.profiling import span
 
 
 def mean_over_ranks(tensors: Sequence[torch.Tensor], group: Optional[object] = None) -> List[torch.Tensor]:
@@ -30,10 +31,11 @@ def mean_over_ranks(tensors: Sequence[torch.Tensor], group: Optional[object] = N
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1:
         raise ValueError(f"mean_over_ranks takes tensors of one dtype, got {sorted(map(str, dtypes))}")
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=group)
-    flat.div_(dist.get_world_size(group))
-    return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+    with span("holo.allreduce"):
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=group)
+        flat.div_(dist.get_world_size(group))
+        return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def gathered_loss_aware_update(

@@ -40,6 +40,7 @@ from ..models import diffusion as gd
 from ..models.holo_model import HoloDiffusionModel
 from ..random_draws import Draws
 from ..train.optimizer import Optimizer
+from ..utils.profiling import span
 from .collectives import gathered_loss_aware_update, mean_over_ranks
 
 TRACKED_METRICS = (
@@ -168,50 +169,52 @@ def make_train_step(
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
 
     def one_step(state: TrainState, batch: FrameData, draws: Draws) -> Dict[str, torch.Tensor]:
-        timesteps = weights = None
-        if loss_aware:
-            timesteps, weights = gd.loss_aware_sample_timesteps(model.schedule, state.sampler_state, 2, draws)
-        optimizer.zero_grad()
-        preds = model(
-            camera=batch.camera,
-            image_rgb=batch.image_rgb,
-            fg_probability=batch.fg_probability,
-            mask_crop=batch.mask_crop,
-            depth_map=batch.depth_map,
-            training=True,
-            draws=draws,
-            timesteps=timesteps,
-            src_image_rgb=batch.src_image_rgb,
-            src_fg_probability=batch.src_fg_probability,
-            src_mask_crop=batch.src_mask_crop,
-        )
-        objective = preds["objective"]
-        take_boot = bool(preds.get("diffusion_take_boot", False))
-        if loss_aware:
-            objective = objective * importance_scale(weights, take_boot)
-        objective.backward()
-        if mesh is not None:
-            # a parameter without a gradient on this rank enters as zeros,
-            # so every rank reduces the same buffer
-            params = optimizer.params()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            for p, g in zip(params, mean_over_ranks(grads, mesh.group)):
-                p.grad = g
-        optimizer.step()
-        metrics = scalar_metrics(preds)
-        if loss_aware:
-            if mesh is None:
-                state.sampler_state = gd.loss_aware_update(
-                    state.sampler_state, timesteps, metrics["objective"].expand(2), ts_validity_mask(take_boot))
-            else:
-                state.sampler_state = gathered_loss_aware_update(
-                    state.sampler_state, timesteps, metrics["objective"], ts_validity_mask(take_boot), mesh.group)
-        if mesh is not None:
-            metrics = dict(zip(metrics, mean_over_ranks(list(metrics.values()), mesh.group)))
-        if ema_rate > 0.0:
-            gd.update_ema(state.ema, dict(model.named_parameters()), ema_rate)
-        state.step += 1
-        return metrics
+        with span("holo.step"):
+            timesteps = weights = None
+            if loss_aware:
+                timesteps, weights = gd.loss_aware_sample_timesteps(model.schedule, state.sampler_state, 2, draws)
+            optimizer.zero_grad()
+            preds = model(
+                camera=batch.camera,
+                image_rgb=batch.image_rgb,
+                fg_probability=batch.fg_probability,
+                mask_crop=batch.mask_crop,
+                depth_map=batch.depth_map,
+                training=True,
+                draws=draws,
+                timesteps=timesteps,
+                src_image_rgb=batch.src_image_rgb,
+                src_fg_probability=batch.src_fg_probability,
+                src_mask_crop=batch.src_mask_crop,
+            )
+            objective = preds["objective"]
+            take_boot = bool(preds.get("diffusion_take_boot", False))
+            if loss_aware:
+                objective = objective * importance_scale(weights, take_boot)
+            with span("holo.backward"):
+                objective.backward()
+            if mesh is not None:
+                # a parameter without a gradient on this rank enters as zeros,
+                # so every rank reduces the same buffer
+                params = optimizer.params()
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                for p, g in zip(params, mean_over_ranks(grads, mesh.group)):
+                    p.grad = g
+            optimizer.step()
+            metrics = scalar_metrics(preds)
+            if loss_aware:
+                if mesh is None:
+                    state.sampler_state = gd.loss_aware_update(
+                        state.sampler_state, timesteps, metrics["objective"].expand(2), ts_validity_mask(take_boot))
+                else:
+                    state.sampler_state = gathered_loss_aware_update(
+                        state.sampler_state, timesteps, metrics["objective"], ts_validity_mask(take_boot), mesh.group)
+            if mesh is not None:
+                metrics = dict(zip(metrics, mean_over_ranks(list(metrics.values()), mesh.group)))
+            if ema_rate > 0.0:
+                gd.update_ema(state.ema, dict(model.named_parameters()), ema_rate)
+            state.step += 1
+            return metrics
 
     def train_step(state: TrainState, batch: FrameData, generator_or_draws) -> Tuple[TrainState, Dict]:
         if state.model is not model or state.optimizer is not optimizer:

@@ -24,6 +24,7 @@ from .models.renderer import RendererOutput
 from .ops.occupancy import occupancy_from_density, tighten_ray_bundle
 from .ops.voxel import voxel_coord_grid
 from .parallel.mesh import Mesh
+from .utils.profiling import span
 from .weights import check_keys
 
 Occupancy = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -137,15 +138,16 @@ def render_image_chunked(
     chunk_renderer = make_chunk_render_fn(model)
     parts = {"images_render": [], "depths_render": [], "masks_render": [], "normals_render": []}
     for start in range(0, n_rays, step):
-        chunk = bundle.slice_rays(slice(start, start + step))
-        if tighten is not None:
-            chunk = tighten(chunk)
-        out = chunk_renderer(voxel_grid, chunk)
-        parts["images_render"].append(out.features[0, :, :3])
-        parts["depths_render"].append(out.depths[0])
-        parts["masks_render"].append(out.masks[0])
-        if out.normals is not None:
-            parts["normals_render"].append(out.normals[0])
+        with span("holo.chunk"):
+            chunk = bundle.slice_rays(slice(start, start + step))
+            if tighten is not None:
+                chunk = tighten(chunk)
+            out = chunk_renderer(voxel_grid, chunk)
+            parts["images_render"].append(out.features[0, :, :3])
+            parts["depths_render"].append(out.depths[0])
+            parts["masks_render"].append(out.masks[0])
+            if out.normals is not None:
+                parts["normals_render"].append(out.normals[0])
     return {k: torch.cat(v, dim=0).reshape(H, W, -1) for k, v in parts.items() if v}
 
 

@@ -11,6 +11,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import span
+
 Schedule = Callable[[int], float]
 
 
@@ -82,11 +84,12 @@ class Optimizer:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self):
-        if self.clip_grad and self.clip_grad > 0:
-            torch.nn.utils.clip_grad_norm_(self.params(), self.clip_grad)
-        self.optimizer.step()
-        self.steps += 1
-        self._set_lr()
+        with span("holo.optimizer"):
+            if self.clip_grad and self.clip_grad > 0:
+                torch.nn.utils.clip_grad_norm_(self.params(), self.clip_grad)
+            self.optimizer.step()
+            self.steps += 1
+            self._set_lr()
 
 
 def make_optimizer(

@@ -1,10 +1,21 @@
 """Profiling and debugging helpers (port of
 holo_diffusion_tpu/utils/profiling.py; the reference's torch.profiler
-traces, training_loop.py:463-473 and 525-538, its trainer/timer.py and its
-`detect_anomaly`, experiment.py:181-184).
+traces, training_loop.py:463-473 and 525-538, and its `detect_anomaly`,
+experiment.py:181-184).
 
 Traces are torch.profiler captures of the host (and, with a card, CUDA)
 activity, exported as Chrome trace JSON into the given directory.
+
+Spans and counters. `span(name)` marks a layer of the program (the
+`holo.*` names: step, data wait and copy, extractor, pooler, UNet, render
+and its passes, decode and its backward, loss, backward, optimizer, chunk,
+DDPM step, all-reduce) and `count(name, n)` adds to a named counter (the
+bytes and batches the loop copies to the card). Both act only while a
+torch profiler records, whoever started it: then a span is a
+`record_function` annotation in the same trace as the device's activity,
+on its clock, nested in the spans open on its thread. Otherwise `span`
+returns one shared no-op context after a single attribute read, and
+`count` returns at once.
 """
 from __future__ import annotations
 
@@ -12,14 +23,46 @@ import contextlib
 import itertools
 import logging
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 logger = logging.getLogger(__name__)
 _trace_ids = itertools.count()
+_OFF = contextlib.nullcontext()
+_counters: Dict[str, int] = defaultdict(int)
+_counters_lock = threading.Lock()
+
+
+def span(name: str):
+    """A context that marks `name` in the trace while a torch profiler
+    records; the shared no-op context otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` to the counter `name` while a torch profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _counters_lock:
+        _counters[name] += int(n)
+
+
+def counters() -> Dict[str, int]:
+    """The counters' values (those counted since the last reset)."""
+    with _counters_lock:
+        return dict(_counters)
+
+
+def reset_counters() -> None:
+    with _counters_lock:
+        _counters.clear()
 
 
 def _sync(value) -> None:
@@ -34,17 +77,31 @@ def _sync(value) -> None:
         torch.cuda.synchronize(value.device)
 
 
+def _all_threads_config():
+    """The profiler setting that traces every thread (torch 2.11 has it);
+    None, the default of the calling thread alone, on a torch without it."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        logger.warning("this torch traces the calling thread alone: the loader's copies are left out")
+        return None
+
+
 def _start(log_dir: str) -> torch.profiler.profile:
+    """Start a trace of every thread where torch can (the loader's copies
+    too), with the counters from zero."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
+    prof = torch.profiler.profile(activities=activities, experimental_config=_all_threads_config())
+    reset_counters()
     prof.start()
     return prof
 
 
 def _stop(prof: torch.profiler.profile, log_dir: str) -> str:
     prof.stop()
+    logger.info("counters over the trace: %s", counters())
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"trace_{os.getpid()}_{next(_trace_ids)}.pt.trace.json")
     prof.export_chrome_trace(path)
@@ -109,39 +166,3 @@ class SteadyStateProfiler:
 def enable_anomaly_detection(enabled: bool = True) -> None:
     """autograd's anomaly detection (the reference's `detect_anomaly`)."""
     torch.autograd.set_detect_anomaly(enabled)
-
-
-class Timer:
-    """Accumulating named wall timer; waits for the card on exit when its
-    `sync_value` lies there (trainer/timer.py:12-71)."""
-
-    _accum: Dict[str, float] = defaultdict(float)
-    _count: Dict[str, int] = defaultdict(int)
-
-    def __init__(self, name: str = "timer", quiet: bool = True, sync_value=None):
-        self.name = name
-        self.quiet = quiet
-        self.sync_value = sync_value
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.sync_value is not None:
-            _sync(self.sync_value)
-        dt = time.perf_counter() - self._t0
-        Timer._accum[self.name] += dt
-        Timer._count[self.name] += 1
-        if not self.quiet:
-            print(f"[{self.name}] {dt * 1000:.2f} ms")
-        return False
-
-    @classmethod
-    def averages(cls) -> Dict[str, float]:
-        return {k: cls._accum[k] / max(cls._count[k], 1) for k in cls._accum}
-
-    @classmethod
-    def reset(cls):
-        cls._accum.clear()
-        cls._count.clear()

@@ -126,20 +126,30 @@ def _traces(d):
     return [f for f in os.listdir(d) if f.endswith(".json")] if os.path.isdir(d) else []
 
 
-def test_profiler_traces(tmp_path):
-    """Dispatches 1..n_steps traced, dispatch 0 not; a single-dispatch epoch
-    still leaves a trace; `profile_trace` traces a block; the Timer."""
+def test_profiler_traces(tmp_path, caplog):
+    """Dispatches 1..n_steps traced, dispatch 0 not, with their spans, and
+    the counters counted over them from zero and logged at the close; a
+    single-dispatch epoch still leaves a trace; `profile_trace` traces a
+    block."""
     x = torch.ones(64)
+    tp.reset_counters()
+    tp.count("h2d_bytes", 1)  # no profiler: not counted
     prof = tp.SteadyStateProfiler(str(tmp_path / "a"), n_steps=2)
-    for it in range(4):
-        prof.before_dispatch(it)
-        x = x * 1.5
-        prof.after_dispatch(it, {"x": x})
-        assert bool(_traces(tmp_path / "a")) == (it >= 2)
-    prof.finish(x)
+    with caplog.at_level(logging.INFO, logger=tp.logger.name):
+        for it in range(4):
+            prof.before_dispatch(it)
+            with tp.span("holo.step"):
+                x = x * 1.5
+            tp.count("h2d_bytes", 64 * 4)
+            prof.after_dispatch(it, {"x": x})
+            assert bool(_traces(tmp_path / "a")) == (it >= 2)
+        prof.finish(x)
+    assert tp.counters() == {"h2d_bytes": 2 * 64 * 4}
+    assert "counters over the trace: {'h2d_bytes': 512}" in caplog.text
     assert len(_traces(tmp_path / "a")) == 1
     events = json.load(open(tmp_path / "a" / _traces(tmp_path / "a")[0]))["traceEvents"]
     assert any("mul" in e.get("name", "") for e in events)
+    assert sum(e.get("name") == "holo.step" and e.get("ph") == "X" for e in events) == 2
     single = tp.SteadyStateProfiler(str(tmp_path / "b"))
     single.before_dispatch(0)
     single.after_dispatch(0, x)
@@ -148,10 +158,6 @@ def test_profiler_traces(tmp_path):
     with tp.profile_trace(str(tmp_path / "c")):
         torch.ones(3).sum()
     assert len(_traces(tmp_path / "c")) == 1
-    tp.Timer.reset()
-    with tp.Timer("x", sync_value=x):
-        pass
-    assert set(tp.Timer.averages()) == {"x"}
 
 
 def test_denoising_video_frames(tmp_path):
