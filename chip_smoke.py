@@ -17,7 +17,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
            K5 and K7 on random and on ray-ordered points;
            each kernel's device time per launch (torch.profiler) beside
            the time of a wrapper call (CUDA events), and for K4-K7 the
-           time of `torch.nn.functional.grid_sample` computing the same
+           time of `torch.nn.functional.grid_sample` computing the same;
+           the view sampler (K8) forward and backward at the release
+           pooling shapes (30 and 23 source views, the 16^3 voxel centres,
+           the six extractor maps) by CUDA events, against its bound, its
+           plain version and `grid_sample`
   sample   hydrant model (seeded random weights), 1000-step DDPM, B=1
   render   fly-around at 512^2 through the chunked renderer: 2 poses with
            normals (K3), 1 pose of the same model with normals off (K1)
@@ -196,6 +200,12 @@ SAMPLER_KEY = f"{HYDRANT_MODEL}.implicit_function_HoloVoxelGridImplicitFunction_
 # magnitude (K5 sums ~100 points per voxel with atomics in no fixed order)
 SAMPLE_TOL = 1e-4
 SAMPLE_COT_TOL = 1e-4
+# the view sampler (K8) vs its plain version: the forward rounds as the
+# plain version does, in its order (absolute, unit-scale maps); the maps'
+# gradients sum up to ~1000 shares a pixel in point order, the plain
+# version corner by corner (of each gradient's largest magnitude)
+VIEW_SAMPLE_TOL = 1e-6
+VIEW_SAMPLE_GRAD_TOL = 1e-5
 # the unfused implicit function against the fused one: the same function,
 # with the density net layer by layer or collapsed into one affine map. On
 # the same points every output within 2e-3. Over a whole 512^2 frame the
@@ -719,6 +729,124 @@ def sample_kernel_phase(model, results):
             results[name][case] = {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
 
 
+def view_sample_bytes(maps, xy, wanted):
+    """(forward bytes, backward bytes) K8 must move: xy read once (8 bytes
+    a point), the maps' distinct pixels the points' inside corners touch
+    read once, the (S, N, F) rows written once; backward, the rows of the
+    maps that take a gradient read once and those gradients written once
+    whole."""
+    import torch
+
+    S, N = xy.shape[:2]
+    fwd = 8 * S * N + 4 * S * N * sum(m.shape[-1] for m in maps)
+    for m in maps:
+        h, w = m.shape[1:3]
+        fx = (-xy[..., 0] + 1.0) * 0.5 * w - 0.5
+        fy = (-xy[..., 1] + 1.0) * 0.5 * h - 0.5
+        x0, y0 = torch.floor(fx).long(), torch.floor(fy).long()
+        cells = []
+        for dy in (0, 1):
+            for dx in (0, 1):
+                xi, yi = x0 + dx, y0 + dy
+                inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+                view = torch.arange(S, device=xy.device)[:, None].expand(S, N)
+                cells.append(((view * h + yi) * w + xi)[inside])
+        fwd += 4 * m.shape[-1] * int(torch.unique(torch.cat(cells)).numel())
+    bwd = 8 * S * N + sum(4 * S * N * m.shape[-1] + 4 * m.numel() for m, want in zip(maps, wanted) if want)
+    return fwd, bwd
+
+
+def view_sample_kernel_phase(results):
+    """K8 (`view_sample_fwd`, `view_sample_bwd`) against its plain version at
+    the release pooling shapes: S source views (30, hydrant; 23, teddybear),
+    the 16^3 voxel centres' 4096 points on the maps (uniform in NDC
+    [-1, 1]), the extractor's six maps (images and masks 256^2 NHWC,
+    res_layer_1..4 64^2..8^2 x 16 NHWC views of NCHW memory, the only ones
+    taking a gradient). ms by CUDA events and device ms by
+    torch.profiler; beside them the bound (bytes at
+    3.35 TB/s), the plain version's ms and `grid_sample`'s (one call a map
+    on the NCHW memory, then the concatenation)."""
+    import torch
+    import torch.nn.functional as F
+
+    from holo_diffusion_torch.ops import view_sample as vs
+
+    dev = torch.device("cuda")
+    sizes = {"images": (256, 256, 3), "masks": (256, 256, 1), "res_layer_1": (64, 64, 16),
+             "res_layer_2": (32, 32, 16), "res_layer_3": (16, 16, 16), "res_layer_4": (8, 8, 16)}
+    N = 16 ** 3
+    for case, S in (("hydrant", 30), ("teddybear", 23)):
+        gen = torch.Generator(device=dev).manual_seed(S)
+        maps = []
+        for k in sorted(sizes):
+            h, w, c = sizes[k]
+            m = torch.rand((S, c, h, w), generator=gen, device=dev) * 2 - 1
+            maps.append(m.permute(0, 2, 3, 1).requires_grad_() if k.startswith("res") else
+                        m.permute(0, 2, 3, 1).contiguous())
+        xy = (torch.rand((S, N, 3), generator=gen, device=dev) * 2 - 1)[..., :2]
+        wanted = [m.requires_grad for m in maps]
+        grad_maps = [m for m in maps if m.requires_grad]
+        F_ = sum(m.shape[-1] for m in maps)
+        cot = torch.randn((S, N, F_), generator=gen, device=dev)
+        offsets = vs.check_operands(maps, xy)
+        metas = [torch.empty_like(m, device="meta") for m in maps]
+        with torch.no_grad():
+            got, want = vs.view_sample(maps, xy), vs.view_sample_reference(maps, xy)
+            fwd_err = float((got - want).abs().max())
+            fwd_ms = cuda_time_ms(lambda: vs.view_sample(maps, xy))
+            fwd_dev_ms = device_ms_per_launch(lambda: vs.view_sample(maps, xy), "view_sample_fwd_kernel")
+            plain_fwd_ms = cuda_time_ms(lambda: vs.view_sample_reference(maps, xy), iters=3)
+        bwd = lambda: vs._bwd_cuda(metas, offsets, xy, False, cot, wanted)  # noqa: E731
+        g_got = [g for g in bwd() if g is not None]
+        plain_out = vs.view_sample_reference(maps, xy)
+        g_want = torch.autograd.grad(plain_out, grad_maps, cot, retain_graph=True)
+        bwd_err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_got, g_want))
+        bwd_ms = cuda_time_ms(bwd)
+        bwd_dev_ms = device_ms_per_launch(bwd, "view_sample_bwd_kernel")
+        plain_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(plain_out, grad_maps, cot, retain_graph=True),
+                                    iters=3)
+        del plain_out
+        # the library: grid_sample on each map's NCHW memory, then the rows
+        grid = (-xy)[:, None]
+        lib_out = torch.cat([F.grid_sample(m.permute(0, 3, 1, 2), grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=False)[:, :, 0].permute(0, 2, 1) for m in maps], dim=-1)
+        with torch.no_grad():
+            lib_err = float((lib_out - want).abs().max())
+            lib_fwd_ms = cuda_time_ms(lambda: torch.cat(
+                [F.grid_sample(m.permute(0, 3, 1, 2), grid, mode="bilinear", padding_mode="zeros",
+                               align_corners=False)[:, :, 0].permute(0, 2, 1) for m in maps], dim=-1))
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(lib_out, grad_maps, cot, retain_graph=True))
+        del lib_out
+        fwd_bytes, bwd_bytes = view_sample_bytes(maps, xy, wanted)
+        for name, err, tol, ms, dev_ms, plain_ms, lib_ms, n_bytes in (
+                ("view_sample_fwd", fwd_err, VIEW_SAMPLE_TOL, fwd_ms, fwd_dev_ms, plain_fwd_ms, lib_fwd_ms,
+                 fwd_bytes),
+                ("view_sample_bwd", bwd_err, VIEW_SAMPLE_GRAD_TOL, bwd_ms, bwd_dev_ms, plain_bwd_ms, lib_bwd_ms,
+                 bwd_bytes)):
+            rec = {
+                "name": name,
+                "route": "cuda",
+                "source": "holo_diffusion_torch/csrc/view_sample.cu",
+                "replaces": "none (the JAX package leaves the view sampling to XLA)",
+                "max_abs_err" if name.endswith("fwd") else "max_rel_err": err,
+                "ms": ms,
+                "device_ms": dev_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": 1e3 * n_bytes / PEAK_BYTES_PER_S,
+                "bound_by": "bytes",
+                "library_ms": lib_ms,
+            }
+            emit({"phase": "kernels", "case": case, **rec, "views": S, "points": N, "channels": F_,
+                  "bytes": n_bytes, "tol": tol, "library": "torch.nn.functional.grid_sample, one call a map",
+                  "library_max_abs_err": lib_err})
+            if not err <= tol:
+                raise AssertionError(f"{name} ({case}): error {err} > {tol}")
+            if case == "hydrant":
+                results[name] = rec
+            else:
+                results[name][case] = {k: v for k, v in rec.items() if k.endswith(("err", "ms"))}
+
+
 def unfused_models(model, build_model, dev):
     """The hydrant model's weights in the unfused implicit function
     (fuse_decode="off"): sampler "fused"; collapse_density="on"; sampler
@@ -736,16 +864,19 @@ def launch_counts_all():
     from holo_diffusion_torch.ops import fused_decode as fd
     from holo_diffusion_torch.ops import fused_render as fr
     from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.ops import view_sample as vs
 
-    return {**fd.launch_counts(), **ks.launch_counts(), **ks.launch_counts_by_channels(), **fr.launch_counts()}
+    return {**fd.launch_counts(), **ks.launch_counts(), **ks.launch_counts_by_channels(), **fr.launch_counts(),
+            **vs.launch_counts()}
 
 
 def reset_launch_counts_all():
     from holo_diffusion_torch.ops import fused_decode as fd
     from holo_diffusion_torch.ops import fused_render as fr
     from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.ops import view_sample as vs
 
-    for mod in (fd, ks, fr):
+    for mod in (fd, ks, fr, vs):
         mod.reset_launch_counts()
 
 
@@ -3022,6 +3153,7 @@ def main():
     results = {}
     kernel_phase(model, results)
     sample_kernel_phase(model, results)
+    view_sample_kernel_phase(results)
 
     conv_flops, n_convs = unet_conv_flops(model, dev)
 
@@ -3107,15 +3239,20 @@ def main():
     batch = synthetic_batch(cfg, dev)
     steps = 5
     train_step_fn, counts = train_phase(model, cfg, batch, dev, "train", steps)
-    expect_launches(counts, "training", exactly={"fused_decode_fwd_normals": 2 * steps, "fused_decode_bwd": 2 * steps},
+    # one pooling a step: K8 once each way
+    expect_launches(counts, "training", exactly={"fused_decode_fwd_normals": 2 * steps, "fused_decode_bwd": 2 * steps,
+                                                 "view_sample_fwd": steps, "view_sample_bwd": steps},
                     none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["fused_decode_bwd"]["launches"] = counts["fused_decode_bwd"]
+    for name in ("view_sample_fwd", "view_sample_bwd"):
+        results[name]["train_launches"] = counts[name]
     results["fused_decode_fwd_normals"]["train_launches"] = counts["fused_decode_fwd_normals"]
     steps = 3
     unfused_step_fn, counts = train_phase(unfused, cfg, batch, dev, "train_unfused", steps)
     # per step and render pass: K4 forward, K6 for the normals, K5 backward
     expect_launches(counts, "unfused training",
-                    exactly={name: 2 * steps for name in ks.ENTRY_POINTS},
+                    exactly={**{name: 2 * steps for name in ks.ENTRY_POINTS},
+                             "view_sample_fwd": steps, "view_sample_bwd": steps},
                     none=(*fd.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["kron_sample_dgrid"]["launches"] = counts["kron_sample_dgrid"]
     for name in ("kron_sample_fwd", "kron_sample_dpoints"):
@@ -3172,7 +3309,8 @@ def main():
     torch.cuda.empty_cache()
     rehearsal_phase(here, dev, results)
 
-    emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS)]})
+    emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS,
+                                           "view_sample_fwd", "view_sample_bwd")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,7 +13,7 @@ from torch import nn
 
 from ..geometry.cameras import PerspectiveCameras, camera_centers, project_points_ndc
 from ..geometry.harmonic import HarmonicEmbedding
-from ..ops.image import bilinear_sample_ndc
+from ..ops.view_sample import view_sample
 from .mlp import MLPWithInputSkips
 
 
@@ -25,22 +25,18 @@ def sample_view_features(
     masked_sampling: bool = False,
 ):
     """Sample every (S, h, w, c) map of `feats` (in sorted key order) at the
-    projections of the world points `pts` (N, 3) into the S cameras.
+    projections of the world points `pts` (N, 3) into the S cameras, all in
+    one `view_sample` call (one kernel launch on the card).
     Returns (features (S, N, sum c), validity (S, N, 1)): in front of the
     camera and, with `masked_sampling`, inside `masks` (S, H, W, 1)."""
     S = cameras.batch_size
     ndc = project_points_ndc(cameras, pts[None].expand(S, *pts.shape))
     xy = ndc[..., :2]
     in_front = (ndc[..., 2:3] > 0.0).to(torch.float32)
-    parts = []
-    for key in sorted(feats):
-        fmap = feats[key]
-        parts.append(torch.stack([bilinear_sample_ndc(fmap[s], xy[s]) for s in range(S)]))
-    feats_sampled = torch.cat(parts, dim=-1)
+    feats_sampled = view_sample([feats[key] for key in sorted(feats)], xy)
     valid = in_front
     if masked_sampling and masks is not None:
-        m = torch.stack([bilinear_sample_ndc(masks[s], xy[s]) for s in range(S)])
-        valid = (m > 0.5).to(torch.float32) * in_front
+        valid = (view_sample([masks], xy) > 0.5).to(torch.float32) * in_front
     return feats_sampled, valid
 
 

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
-SOURCES = ("fused_decode", "fused_decode_bwd", "kron_sample", "fused_render")
+SOURCES = ("fused_decode", "fused_decode_bwd", "kron_sample", "fused_render", "view_sample")
 HOST_SOURCES = ("preprocess",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
