@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`holo_diffusion_torch`) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --only c128  # build, then the c128 phase alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
   build    compile the CUDA kernels with nvcc (build/holo_diffusion_torch/)
@@ -22,6 +23,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
            pooling shapes (30 and 23 source views, the 16^3 voxel centres,
            the six extractor maps) by CUDA events, against its bound, its
            plain version and `grid_sample`
+  c128     the C-128 kernels (csrc/fused_decode_c128.cu) on the
+           hydrant_g32c128 model (32^3 x 128 grid, hidden 256): K1 and K3
+           at a training fine pass (393,216 points) and an evaluation chunk
+           (640 rays x 128 points), K2 at the fine pass on random and
+           ray-ordered points with a slope-safe cotangent, each against its
+           plain version with its device ms, bound and shared memory; then
+           its training main path, 2 steps of 33 frames at 800^2 (K3 and K2
+           twice a step at C 128, nothing else of the decode or sampling)
   sample   hydrant model (seeded random weights), 1000-step DDPM, B=1
   render   fly-around at 512^2 through the chunked renderer: 2 poses with
            normals (K3), 1 pose of the same model with normals off (K1)
@@ -129,10 +138,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
            step, peak and resting memory by epoch (growth bounded); the
            probes of a narrow model card vs CPU
   kernels summary, the card's name and power limit, and the result line.
-Twenty-two main paths, each with the launch counters zeroed right before it and
-read right after it: serving (`sample` + `render`, which must launch K1 and
-K3), unfused serving (K4, K6 and K7, no K1/K3), training (the 5 timed
-steps, which must launch K3 and K2), unfused training (K4, K5 and K6,
+Twenty-three main paths, each with the launch counters zeroed right before it and
+read right after it: C-128 training (K3 and K2 at C 128 alone), serving
+(`sample` + `render`, which must launch K1 and K3), unfused serving (K4, K6
+and K7, no K1/K3), training (the 5 timed steps, which must launch K3 and K2,
+at C 64 alone), unfused training (K4, K5 and K6,
 no K1/K2/K3), the training loop (runs A and B: K2 twice a step, K3
 twice a step and 820 times a validation frame, no K1 or K4-K7), the
 training loop on CO3D and the whole training step (the same counts for
@@ -183,6 +193,13 @@ KERNEL_TOL = 1e-4
 # scale (the phase counts such pre-activations). Under the 2e-3 the JAX
 # package holds its training gradients to.
 KERNEL_BWD_TOL = 1e-3
+# the C-128 backward kernel against the plain backward on a cotangent that
+# is zero at the points where the two may take different slopes
+# (`slope_safe_cotangent`): relative to each cotangent's largest magnitude.
+# Both then compute the same function and differ by summation order alone
+# (dA, summed over 393,216 points, reads up to ~2.2e-5); a backward on plain
+# TF32 products (no 3 x TF32 split) reads 2.9e-3 and more, and fails it.
+KERNEL_BWD_SLOPE_SAFE_TOL = 1e-4
 # training step, card vs CPU at a narrow width: objective (absolute) and
 # gradients relative to each leaf's largest magnitude; float32 through two
 # UNet passes, two render passes and an importance resampling
@@ -372,13 +389,56 @@ def decode_bounds(n_points, n_rays, grid_shape, hidden, pe_dim, normals):
             1e3 * (3 * affine / PEAK_TF32_FLOPS + (flops - affine) / PEAK_F32_FLOPS))
 
 
+def decode_fwd_case(name, args, kw, case, device_name, source, replaces, extra=None):
+    """K1 or K3 (`kw` holds g1 for K3) on the operands `args` of
+    `fused_sample_decode` against the plain version on the same card: the
+    largest error (at most KERNEL_TOL), the kernel's device ms a launch
+    (the device kernel whose name holds `device_name`), a wrapper call's
+    and the plain version's ms, the bound. Emits the record; returns it."""
+    import torch
+
+    from holo_diffusion_torch.ops import fused_decode as fd
+
+    grid, points, pe, hidden = args[0], args[5], args[6], args[8]
+    with torch.no_grad():
+        out = fd.fused_sample_decode(*args, **kw)
+        ref = fd.fused_sample_decode_reference(*args, **kw)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+        del out, ref
+        wrapper_ms = cuda_time_ms(lambda: fd.fused_sample_decode(*args, **kw))
+        ms = device_ms_per_launch(lambda: fd.fused_sample_decode(*args, **kw), device_name)
+        plain_ms = cuda_time_ms(lambda: fd.fused_sample_decode_reference(*args, **kw))
+    n = points.numel() // 3
+    bytes_ms, f32_ms, tf32x3_ms = decode_bounds(n, pe.shape[0], grid.shape, hidden, pe.shape[-1], "g1" in kw)
+    # the least time at float32 accuracy: the cheaper of the two ways
+    # to do the operations, against the bytes
+    ops_ms = min(f32_ms, tf32x3_ms)
+    rec = {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+    emit({"phase": "kernels", "case": case, **rec, "wrapper_ms": wrapper_ms, "points": n,
+          "bound_f32_cuda_cores_ms": max(bytes_ms, f32_ms), "bound_tf32x3_tensor_cores_ms": max(bytes_ms, tf32x3_ms),
+          "lane_errs": dict(zip(("density", "rgb", "normals"), errs)), "tol": KERNEL_TOL, **(extra or {})})
+    if not max(errs) <= KERNEL_TOL:
+        raise AssertionError(f"{name} ({case}): max_abs_err {max(errs)} > {KERNEL_TOL}")
+    return rec
+
+
 def kernel_phase(model, results):
     """K1 and K3 at both render chunks of the hydrant render (640 rays x 128
     points after the fine pass, x 64 in the coarse pass; the main path
     alternates them) against the plain version on the same card."""
     import torch
-
-    from holo_diffusion_torch.ops import fused_decode as fd
 
     fn = model.implicit_function
     mlp = fn.render_mlp
@@ -404,38 +464,9 @@ def kernel_phase(model, results):
         ("fused_decode_fwd_normals", True, "holo_diffusion_tpu/ops/pallas/fused_decode.py:144"),
     ):
         for chunk, points in all_points.items():
-            args = (grid, A, c, Wr, br, points, pe, extent, hidden)
             kw = {"g1": g1} if normals else {}
-            with torch.no_grad():
-                out = fd.fused_sample_decode(*args, **kw)
-                ref = fd.fused_sample_decode_reference(*args, **kw)
-                torch.cuda.synchronize()
-                errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
-                wrapper_ms = cuda_time_ms(lambda: fd.fused_sample_decode(*args, **kw))
-                ms = device_ms_per_launch(lambda: fd.fused_sample_decode(*args, **kw), "fused_decode_kernel")
-                plain_ms = cuda_time_ms(lambda: fd.fused_sample_decode_reference(*args, **kw))
-            n = points.numel() // 3
-            bytes_ms, f32_ms, tf32x3_ms = decode_bounds(n, R, grid.shape, hidden, pe.shape[-1], normals)
-            # the least time at float32 accuracy: the cheaper of the two ways
-            # to do the operations, against the bytes
-            ops_ms = min(f32_ms, tf32x3_ms)
-            rec = {
-                "name": name,
-                "route": "cuda",
-                "source": "holo_diffusion_torch/csrc/fused_decode.cu",
-                "replaces": replaces,
-                "max_abs_err": max(errs),
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-                "library_ms": None,  # no single PyTorch call computes this function
-            }
-            emit({"phase": "kernels", "case": chunk, **rec, "wrapper_ms": wrapper_ms, "points": n,
-                  "bound_f32_cuda_cores_ms": max(bytes_ms, f32_ms), "bound_tf32x3_tensor_cores_ms": max(bytes_ms, tf32x3_ms),
-                  "lane_errs": dict(zip(("density", "rgb", "normals"), errs)), "tol": KERNEL_TOL})
-            if not max(errs) <= KERNEL_TOL:
-                raise AssertionError(f"{name} ({chunk}): max_abs_err {max(errs)} > {KERNEL_TOL}")
+            rec = decode_fwd_case(name, (grid, A, c, Wr, br, points, pe, extent, hidden), kw, chunk,
+                                  "fused_decode_kernel", "holo_diffusion_torch/csrc/fused_decode.cu", replaces)
             if chunk == "fine":
                 results[name] = rec
             else:  # the second shape of the same entry point
@@ -512,8 +543,6 @@ def kernel_bwd_phase(model, grid, A, c, Wr, br, results):
     along rays (`ray_ordered_points`), where neighbours share voxels."""
     import torch
 
-    from holo_diffusion_torch.ops import fused_decode as fd
-
     dev = grid.device
     gen = torch.Generator(device=dev).manual_seed(3)
     R = 3 * model.n_rays_per_image
@@ -529,40 +558,183 @@ def kernel_bwd_phase(model, grid, A, c, Wr, br, results):
         pe = mlp.encode_dirs(dirs / dirs.norm(dim=-1, keepdim=True))
     for case, points in cases.items():
         args = (grid, A, c, Wr, br, points, pe, model.volume_extent, hidden, g)
-        abs_errs, rel_errs, near_zero, away_rel = decode_bwd_errors(
-            args, fd._fused_sample_decode_bwd_cuda(*args), fd.fused_sample_decode_bwd_reference(*args))
-        wrapper_ms = cuda_time_ms(lambda: fd._fused_sample_decode_bwd_cuda(*args))
-        ms = device_ms_per_launch(lambda: fd._fused_sample_decode_bwd_cuda(*args), "fused_decode_bwd_kernel")
-        plain_ms = cuda_time_ms(lambda: fd.fused_sample_decode_bwd_reference(*args), iters=5)
-        n_bytes, flops, rmw_bytes = decode_bwd_cost(R * P, R, grid.shape, hidden, pe.shape[-1])
-        bytes_ms, f32_ms, tf32x3_ms = decode_bwd_bounds(R * P, R, grid.shape, hidden, pe.shape[-1])
-        # the least time at float32 accuracy: the cheaper of the two ways to
-        # do the operations, against the bytes
-        ops_ms = min(f32_ms, tf32x3_ms)
-        rec = {
-            "name": "fused_decode_bwd",
-            "route": "cuda",
-            "source": "holo_diffusion_torch/csrc/fused_decode_bwd.cu",
-            "replaces": "holo_diffusion_tpu/ops/pallas/fused_decode.py:173",
-            "max_abs_err": max(abs_errs.values()),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": None,  # no single PyTorch call computes this function
-        }
-        emit({"phase": "kernels", "case": case, **rec, "wrapper_ms": wrapper_ms, "points": R * P,
-              "gflop": flops / 1e9, "bytes": n_bytes, "bytes_with_scatter_rmw": rmw_bytes,
-              "bound_f32_cuda_cores_ms": max(bytes_ms, f32_ms),
-              "bound_tf32x3_tensor_cores_ms": max(bytes_ms, tf32x3_ms), "abs_errs": abs_errs,
-              "rel_errs": rel_errs, "rel_tol": KERNEL_BWD_TOL, "nonzero_pre_activations_below_1e-6": near_zero,
-              "d_grid_rel_err_where_slopes_agree": away_rel})
-        if not max(rel_errs.values()) <= KERNEL_BWD_TOL:
-            raise AssertionError(f"fused_decode_bwd ({case}): relative error {rel_errs} > {KERNEL_BWD_TOL}")
+        rec = decode_bwd_case("fused_decode_bwd", args, case, "fused_decode_bwd_kernel",
+                              "holo_diffusion_torch/csrc/fused_decode_bwd.cu", KERNEL_BWD_TOL)
         if case == "random":
             results["fused_decode_bwd"] = rec
         else:  # the second point set of the same entry point
             results["fused_decode_bwd"][case] = {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+
+
+def decode_bwd_case(name, args, case, device_name, source, rel_tol, extra=None):
+    """K2 on the operands `args` of `fused_sample_decode_bwd_reference`
+    against the plain backward on the same card: each cotangent's error
+    relative to its largest magnitude (at most `rel_tol`), the kernel's
+    device ms a launch (the device kernel whose name holds `device_name`),
+    a wrapper call's and the plain version's ms, the bound. Emits the
+    record; returns it."""
+    from holo_diffusion_torch.ops import fused_decode as fd
+
+    grid, points, pe, hidden = args[0], args[5], args[6], args[8]
+    abs_errs, rel_errs, near_zero, away_rel = decode_bwd_errors(
+        args, fd._fused_sample_decode_bwd_cuda(*args), fd.fused_sample_decode_bwd_reference(*args))
+    wrapper_ms = cuda_time_ms(lambda: fd._fused_sample_decode_bwd_cuda(*args))
+    ms = device_ms_per_launch(lambda: fd._fused_sample_decode_bwd_cuda(*args), device_name)
+    plain_ms = cuda_time_ms(lambda: fd.fused_sample_decode_bwd_reference(*args), iters=5)
+    n, R = points.numel() // 3, pe.shape[0]
+    n_bytes, flops, rmw_bytes = decode_bwd_cost(n, R, grid.shape, hidden, pe.shape[-1])
+    bytes_ms, f32_ms, tf32x3_ms = decode_bwd_bounds(n, R, grid.shape, hidden, pe.shape[-1])
+    # the least time at float32 accuracy: the cheaper of the two ways to
+    # do the operations, against the bytes
+    ops_ms = min(f32_ms, tf32x3_ms)
+    rec = {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": "holo_diffusion_tpu/ops/pallas/fused_decode.py:173",
+        "max_abs_err": max(abs_errs.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+    emit({"phase": "kernels", "case": case, **rec, "wrapper_ms": wrapper_ms, "points": n,
+          "gflop": flops / 1e9, "bytes": n_bytes, "bytes_with_scatter_rmw": rmw_bytes,
+          "bound_f32_cuda_cores_ms": max(bytes_ms, f32_ms),
+          "bound_tf32x3_tensor_cores_ms": max(bytes_ms, tf32x3_ms), "abs_errs": abs_errs,
+          "rel_errs": rel_errs, "rel_tol": rel_tol, "nonzero_pre_activations_below_1e-6": near_zero,
+          "d_grid_rel_err_where_slopes_agree": away_rel, **(extra or {})})
+    if not max(rel_errs.values()) <= rel_tol:
+        raise AssertionError(f"{name} ({case}): relative error {rel_errs} > {rel_tol}")
+    return rec
+
+
+def slope_safe_cotangent(g, args):
+    """`g` (R, P, 4) with zeros at the points that have a nonzero
+    pre-activation within 1e-5 of 0, in the density net (s A + c) or in the
+    radiance head (its three outputs before their leaky ReLU), on the
+    operands `args` of `fused_sample_decode`: two float32 summation orders
+    may give such a pre-activation opposite signs, and so the leaky-ReLU
+    slopes 1 and 0.2, which move the point's whole contribution to the
+    cotangents. With their cotangent zero the kernel and the plain backward
+    compute the same function. Returns (the cotangent, the count of zeroed
+    points)."""
+    import torch
+
+    from holo_diffusion_torch.ops.voxel import sample_voxel_grid_world
+
+    grid, A, c, Wr, br, points, pe, extent, hidden = args
+    with torch.no_grad():
+        pre = sample_voxel_grid_world(grid, points.reshape(-1, 3), extent) @ A + c
+        near = ((pre != 0) & (pre.abs() < 1e-5)).any(dim=-1)
+        pe_pts = pe[:, None, :].expand(*points.shape[:-1], pe.shape[-1]).reshape(-1, pe.shape[-1])
+        rpre = torch.cat([torch.nn.functional.leaky_relu(pre[:, :hidden], 0.2), pe_pts], dim=-1) @ Wr + br
+        near |= ((rpre != 0) & (rpre.abs() < 1e-5)).any(dim=-1)
+        del pre, pe_pts, rpre
+    g = g.clone()
+    g.reshape(-1, 4)[near] = 0.0
+    return g, int(near.sum())
+
+
+C128_SOURCE = "holo_diffusion_torch/csrc/fused_decode_c128.cu"
+C128_KERNELS = ("decode_c128_fwd", "decode_c128_fwd_normals", "decode_c128_bwd")
+
+
+def c128_phase(dev, results):
+    """The C-128 kernels on the hydrant_g32c128 model (the reference
+    model's 32^3 x 128 grid, hidden 256, seeded random weights): K1 and K3
+    at a training step's fine pass (3 x 1024 rays x 128 points, 393,216)
+    and at an evaluation chunk (640 rays x 128), on points in depth order
+    along rays, against the plain version within KERNEL_TOL; K2 at the fine
+    pass on random and on ray-ordered points, within
+    KERNEL_BWD_SLOPE_SAFE_TOL on a random cotangent made slope-safe
+    (`slope_safe_cotangent`); the shared memory each launch asked for,
+    against the layout's and the 232,448 bytes a block may opt into. Then
+    the C-128 training main path: 2 timed steps of `make_train_step` on a
+    synthetic 33-frame batch at 800^2, which must launch K3 and K2 twice a
+    step at C 128 and no other decode or sampling kernel."""
+    import torch
+
+    from holo_diffusion_torch.cli import build_model
+    from holo_diffusion_torch.config import load_config
+    from holo_diffusion_torch.ops import _build
+    from holo_diffusion_torch.ops import fused_decode as fd
+    from holo_diffusion_torch.ops import fused_render as fr
+    from holo_diffusion_torch.ops import kron_sample as ks
+    from holo_diffusion_torch.weights import init_weights
+
+    model = build_model("hydrant_g32c128")
+    init_weights(model, seed=0)
+    model.to(dev).eval()
+    mlp = model.implicit_function.render_mlp
+    hidden, pe_dim, extent = mlp.dnet_hidden_dim, mlp.pe_dim, model.volume_extent
+    D, C = model.resol, model.feature_size
+    lib = _build.load("fused_decode_c128")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    grid = torch.tanh(torch.randn((D, D, D, C), generator=gen, device=dev))
+    with torch.no_grad():
+        A, c = mlp.density_affine()
+        Wr, br = (t.detach() for t in mlp.radiance_linear())
+        g1 = torch.einsum("dhwc,c->dhw", grid, A[:, -1])
+
+    def view_rows(R):
+        dirs = torch.randn((R, 3), generator=gen, device=dev)
+        with torch.no_grad():
+            return mlp.encode_dirs(dirs / dirs.norm(dim=-1, keepdim=True))
+
+    def launched_smem(which, want):
+        got = lib.decode_c128_smem_bytes(which)
+        if got != want or got > fd.SMEM_OPTIN_BYTES:
+            raise AssertionError(f"{C128_KERNELS[which]}: launched with {got} bytes of shared memory, layout {want}, "
+                                 f"at most {fd.SMEM_OPTIN_BYTES}")
+        return got
+
+    R_train = 3 * model.n_rays_per_image
+    P_train = model.n_pts_per_ray_training + model.n_pts_per_ray_fine_training
+    shapes = {"train_fine": (R_train, P_train),
+              "eval_chunk": (640, model.n_pts_per_ray_evaluation + model.n_pts_per_ray_fine_evaluation)}
+    for case, (R, P) in shapes.items():
+        points, pe = ray_ordered_points(gen, R, P, extent), view_rows(R)
+        for which, replaces in enumerate(("holo_diffusion_tpu/ops/pallas/fused_decode.py:122",
+                                          "holo_diffusion_tpu/ops/pallas/fused_decode.py:144")):
+            name, kw = C128_KERNELS[which], ({"g1": g1} if which else {})
+            rec = decode_fwd_case(name, (grid, A, c, Wr, br, points, pe, extent, hidden), kw, case,
+                                  "decode_c128_fwd_kernel", C128_SOURCE, replaces)
+            rec["smem_bytes"] = launched_smem(which, fd.fwd_smem_bytes(C, hidden, pe_dim))
+            if case == "train_fine":
+                results[name] = rec
+            else:  # the second shape of the same entry point
+                results[name][case] = {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+
+    half = 0.6 * extent
+    pe = view_rows(R_train)
+    g = torch.randn((R_train, P_train, 4), generator=gen, device=dev)
+    cases = {"random": (torch.rand((R_train, P_train, 3), generator=gen, device=dev) * 2 - 1) * half,
+             "ray_ordered": ray_ordered_points(gen, R_train, P_train, extent)}
+    for case, points in cases.items():
+        g_safe, zeroed = slope_safe_cotangent(g, (grid, A, c, Wr, br, points, pe, extent, hidden))
+        rec = decode_bwd_case("decode_c128_bwd", (grid, A, c, Wr, br, points, pe, extent, hidden, g_safe), case,
+                              "decode_c128_bwd_kernel", C128_SOURCE, KERNEL_BWD_SLOPE_SAFE_TOL,
+                              extra={"slope_safe_zeroed_points": zeroed})
+        rec["smem_bytes"] = launched_smem(2, fd.bwd_smem_bytes(C, hidden, pe_dim))
+        if case == "random":
+            results["decode_c128_bwd"] = rec
+        else:  # the second point set of the same entry point
+            results["decode_c128_bwd"][case] = {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+    del grid, g1, g, g_safe, cases, points, pe
+
+    cfg = load_config("hydrant_g32c128")
+    batch = synthetic_batch(cfg, dev)
+    steps = 2
+    _, counts = train_phase(model, cfg, batch, dev, "train_c128", steps)
+    expect_launches(counts, "C-128 training",
+                    exactly={"fused_decode_fwd_normals@C128": 2 * steps, "fused_decode_bwd@C128": 2 * steps,
+                             "view_sample_fwd": steps, "view_sample_bwd": steps},
+                    none=("fused_decode_fwd", "fused_decode_fwd_normals@C64", "fused_decode_bwd@C64",
+                          *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+    results["decode_c128_fwd_normals"]["train_launches"] = counts["fused_decode_fwd_normals@C128"]
+    results["decode_c128_bwd"]["train_launches"] = counts["fused_decode_bwd@C128"]
 
 
 def sample_cost(kind, n, C, grid_cells, active_corners):
@@ -866,8 +1038,8 @@ def launch_counts_all():
     from holo_diffusion_torch.ops import kron_sample as ks
     from holo_diffusion_torch.ops import view_sample as vs
 
-    return {**fd.launch_counts(), **ks.launch_counts(), **ks.launch_counts_by_channels(), **fr.launch_counts(),
-            **vs.launch_counts()}
+    return {**fd.launch_counts(), **fd.launch_counts_by_channels(), **ks.launch_counts(),
+            **ks.launch_counts_by_channels(), **fr.launch_counts(), **vs.launch_counts()}
 
 
 def reset_launch_counts_all():
@@ -1093,13 +1265,13 @@ def expect_launches(counts, label, exactly=None, some=(), none=()):
     """Fail unless each kernel of `exactly` ({name: n}) was launched n times,
     each of `some` at least once and each of `none` never."""
     for name, n in (exactly or {}).items():
-        if counts[name] != n:
-            raise AssertionError(f"kernel {name}: {counts[name]} launches on the {label} path, expected {n}")
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"kernel {name}: {counts.get(name, 0)} launches on the {label} path, expected {n}")
     for name in some:
-        if counts[name] <= 0:
+        if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
     for name in none:
-        if counts[name] != 0:
+        if counts.get(name, 0) != 0:
             raise AssertionError(f"kernel {name} was launched on the {label} path")
 
 
@@ -3096,9 +3268,15 @@ def build_hydrant(cfg):
     return HoloDiffusionModel(**model_args_from_config(cfg))
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one GPU.")
+    parser.add_argument("--only", choices=("c128",),
+                        help="c128: the build, the C-128 kernels and their training main path alone")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
@@ -3142,6 +3320,15 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "compiled": compiled,
           "ptxas": ptxas})
 
+    results = {}
+    if opts.only == "c128":
+        c128_phase(dev, results)
+        emit({"kernels": [results[n] for n in C128_KERNELS]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     # ---- the hydrant model, seeded random weights
     model = build_model("hydrant")
     init_weights(model, seed=0)
@@ -3150,10 +3337,12 @@ def main():
     model_k1.load_state_dict(model.state_dict())
     model_k1.to(dev).eval()
 
-    results = {}
     kernel_phase(model, results)
     sample_kernel_phase(model, results)
     view_sample_kernel_phase(results)
+    c128_phase(dev, results)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     conv_flops, n_convs = unet_conv_flops(model, dev)
 
@@ -3241,8 +3430,11 @@ def main():
     train_step_fn, counts = train_phase(model, cfg, batch, dev, "train", steps)
     # one pooling a step: K8 once each way
     expect_launches(counts, "training", exactly={"fused_decode_fwd_normals": 2 * steps, "fused_decode_bwd": 2 * steps,
+                                                 "fused_decode_fwd_normals@C64": 2 * steps,
+                                                 "fused_decode_bwd@C64": 2 * steps,
                                                  "view_sample_fwd": steps, "view_sample_bwd": steps},
-                    none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
+                    none=("fused_decode_fwd", "fused_decode_fwd_normals@C128", "fused_decode_bwd@C128",
+                          *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["fused_decode_bwd"]["launches"] = counts["fused_decode_bwd"]
     for name in ("view_sample_fwd", "view_sample_bwd"):
         results[name]["train_launches"] = counts[name]
@@ -3310,7 +3502,7 @@ def main():
     rehearsal_phase(here, dev, results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS,
-                                           "view_sample_fwd", "view_sample_bwd")]})
+                                           "view_sample_fwd", "view_sample_bwd", *C128_KERNELS)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,9 +16,14 @@ Samplers: "fused" (`ops/kron_sample.py`, K4 with K5/K6 as its cotangents),
 K7, forward only) and "onehot_xla" (plain PyTorch). Normals off the fused
 path are the analytic field gradient (one K6 launch) when the density net
 is collapsible, else autograd of the density head through the sampler.
+
+"auto" resolves by `decode_route` and `sampler_route`. Each decode call
+adds 1 to the counter `decodes_fused` or `decodes_layer`
+(`utils/profiling.py` `count`, while a torch profiler records).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -26,13 +31,39 @@ from torch import nn
 
 from ..ops.fused_decode import fused_sample_decode, kernels_take
 from ..ops.fused_render import trilinear_sample_onehot_xla, trilinear_sample_pallas
-from ..ops.kron_sample import DEFAULT_MAX_GC, trilinear_point_gradient, trilinear_sample_fused
+from ..ops.kron_sample import DEFAULT_MAX_GC, KERNEL_MAX_GC, trilinear_point_gradient, trilinear_sample_fused
 from ..ops.voxel import pack_corner_grid, sample_packed_voxel_grid_world, sample_voxel_grid_world
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .render_mlp import RenderMLP
 
 SAMPLERS = ("auto", "fused", "packed", "gather", "pallas", "onehot_xla")
 MODES = ("auto", "on", "off")
+
+
+def _size_limit(device_type: str) -> int:
+    """Largest D*H*W*C that "auto" sends to the kernels' path: on the card
+    what the kernels index; elsewhere DEFAULT_MAX_GC, the TPU's limit, so
+    that a CPU run takes the branch the JAX package takes on its
+    accelerator."""
+    return KERNEL_MAX_GC if device_type == "cuda" else DEFAULT_MAX_GC
+
+
+def sampler_route(device_type: str, grid_shape) -> str:
+    """The sampler "auto" takes for a (D, H, W, C) grid on `device_type`:
+    "fused" (K4-K6) within the size limit, else "packed"."""
+    return "fused" if math.prod(grid_shape) <= _size_limit(device_type) else "packed"
+
+
+def decode_route(device_type: str, grid_shape, fusable: bool, hidden: int, pe_dim: int) -> str:
+    """The decode "auto" takes: "fused" (K1/K3 with K2) for a fusable
+    decoder on a grid within the size limit whose shape the fused-decode
+    kernels take (`ops.fused_decode.kernels_take`, on either device, so
+    the CPU runs the branch the card would), else "layer" (layer by
+    layer)."""
+    if (fusable and math.prod(grid_shape) <= _size_limit(device_type)
+            and kernels_take(int(grid_shape[-1]), hidden, pe_dim)):
+        return "fused"
+    return "layer"
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -45,12 +76,13 @@ class VoxelGridImplicitFunction(nn.Module):
     grid: (D, H, W, C) channels-last, one grid per call.
 
     `sampler`, `collapse_density` and `fuse_decode` take the JAX package's
-    values; "auto" resolves as it does there on its accelerator, on every
-    device: the fused decode when the decoder is fusable, D*H*W*C <=
-    DEFAULT_MAX_GC and the fused-decode kernels take the shape
-    (`ops.fused_decode.kernels_take`: C 32 or 64, hidden within their
-    shared memory), else the layer-by-layer decode with the "fused" sampler
-    under the same size test ("packed" above it); no collapse.
+    values; "auto" takes the fused decode when the decoder is fusable, the
+    grid is within the size limit and the fused-decode kernels take the
+    shape (`ops.fused_decode.kernels_take`: C 32, 64 or 128, hidden within
+    their shared memory), else the layer-by-layer decode with the "fused"
+    sampler under the same size limit ("packed" above it); no collapse. The
+    size limit is what the kernels index on the card, and DEFAULT_MAX_GC
+    (16^3 x 64, the TPU's) elsewhere (`decode_route`, `sampler_route`).
     `sampler_precision` is accepted for the JAX signature and has no effect:
     every sampler computes in float32."""
 
@@ -84,7 +116,7 @@ class VoxelGridImplicitFunction(nn.Module):
     def _sample(self, voxel_grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
         sampler = self.sampler
         if sampler == "auto":
-            sampler = "fused" if voxel_grid.numel() <= DEFAULT_MAX_GC else "packed"
+            sampler = sampler_route(voxel_grid.device.type, voxel_grid.shape)
         extent = self.volume_extent
         if sampler == "fused":
             return trilinear_sample_fused(voxel_grid, points, extent, precision=self.sampler_precision)
@@ -112,12 +144,13 @@ class VoxelGridImplicitFunction(nn.Module):
         mlp = self.render_mlp
         fuse = self.fuse_decode
         if fuse == "auto":
-            # the fused decode only where its kernels take the shape, on
-            # either device, so the CPU runs the branch the card would
-            fuse = "on" if (mlp.decode_is_fusable and voxel_grid.numel() <= DEFAULT_MAX_GC
-                            and kernels_take(voxel_grid.shape[-1], mlp.dnet_hidden_dim, mlp.pe_dim)) else "off"
+            route = decode_route(voxel_grid.device.type, voxel_grid.shape, mlp.decode_is_fusable,
+                                 mlp.dnet_hidden_dim, mlp.pe_dim)
+            fuse = "on" if route == "fused" else "off"
         if fuse == "on":
+            count("decodes_fused", 1)
             return self._fused_decode(voxel_grid, ray_points_world, ray_directions)
+        count("decodes_layer", 1)
 
         if ray_directions is None:
             dirs = torch.ones_like(ray_points_world)

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -28,10 +29,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
-SOURCES = ("fused_decode", "fused_decode_bwd", "kron_sample", "fused_render", "view_sample")
+SOURCES = ("fused_decode", "fused_decode_bwd", "fused_decode_c128", "kron_sample", "fused_render", "view_sample")
 HOST_SOURCES = ("preprocess",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one `load` at a time in a process: threads that first ask for the same
+# library build it once
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -85,7 +89,8 @@ def build(names: Iterable[str] = SOURCES + HOST_SOURCES) -> Dict[str, float]:
     t0 = time.perf_counter()
     for name in todo:
         out = library_path(name)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        # one temporary file per process and thread; os.replace publishes it
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         src = _source(name)
         if src.suffix == ".cu":
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -117,9 +122,10 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu` or `.cpp`, built first if
     needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
     return lib

@@ -2,14 +2,16 @@
 (port of holo_diffusion_tpu/ops/pallas/fused_decode.py), forward and backward.
 
 `fused_sample_decode` launches the CUDA kernels of `csrc/fused_decode.cu`
-(forward) and `csrc/fused_decode_bwd.cu` (backward) for CUDA tensors and
-raises when it cannot; for CPU tensors it runs the plain PyTorch versions
+(forward) and `csrc/fused_decode_bwd.cu` (backward) at C 32 and 64, and of
+`csrc/fused_decode_c128.cu` (both) at C 128, for CUDA tensors and raises
+when it cannot; for CPU tensors it runs the plain PyTorch versions
 `fused_sample_decode_reference` and `fused_sample_decode_bwd_reference`,
 which are also what the card is checked against. When an input requires
 grad, the call goes through `FusedSampleDecode`, a `torch.autograd.Function`
 whose backward is the backward kernel (the `jax.custom_vjp` of the JAX
 package). Each entry point counts its launches
-(`launch_counts`/`reset_launch_counts`).
+(`launch_counts`/`reset_launch_counts`), and by channel count
+(`launch_counts_by_channels`).
 """
 from __future__ import annotations
 
@@ -24,37 +26,66 @@ from .kron_sample import check_flat_index, kron_sample_dpoints_reference
 from .voxel import continuous_indices, sample_voxel_grid_world
 
 NEG_SLOPE = 0.2  # torch.nn.LeakyReLU(0.2)
-SUPPORTED_CHANNELS = (32, 64)  # template instantiations in the CUDA sources
 # dynamic shared memory one block may opt into on sm_90 (H100), in bytes
 SMEM_OPTIN_BYTES = 232_448
 ENTRY_POINTS = ("fused_decode_fwd", "fused_decode_fwd_normals", "fused_decode_bwd")
+# by channel count, each entry point's (library under csrc/, C function)
+_C64_FUNCTIONS = {"fused_decode_fwd": ("fused_decode", "fused_decode_fwd"),
+                  "fused_decode_fwd_normals": ("fused_decode", "fused_decode_fwd_normals"),
+                  "fused_decode_bwd": ("fused_decode_bwd", "fused_decode_bwd")}
+KERNEL_FUNCTIONS = {
+    32: _C64_FUNCTIONS,
+    64: _C64_FUNCTIONS,
+    128: {"fused_decode_fwd": ("fused_decode_c128", "decode_c128_fwd"),
+          "fused_decode_fwd_normals": ("fused_decode_c128", "decode_c128_fwd_normals"),
+          "fused_decode_bwd": ("fused_decode_c128", "decode_c128_bwd")},
+}
+SUPPORTED_CHANNELS = tuple(KERNEL_FUNCTIONS)  # the channel counts the CUDA sources are built for
 
 _launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
+# the same launches by channel count, keyed "<entry point>@C<C>"
+_launches_by_channels: Dict[str, int] = {}
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def launch_counts_by_channels() -> Dict[str, int]:
+    return dict(_launches_by_channels)
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    _launches_by_channels.clear()
+
+
+def _count_launch(name: str, C: int) -> None:
+    _launches[name] += 1
+    key = f"{name}@C{C}"
+    _launches_by_channels[key] = _launches_by_channels.get(key, 0) + 1
 
 
 def fwd_smem_bytes(C: int, hidden: int, pe_dim: int) -> int:
-    """Dynamic shared memory of K1/K3 (`csrc/fused_decode.cu` `Layout`):
-    A split into TF32 hi/lo, c, the radiance rows, pe rows, br, and 16
-    warps' 16-point s tiles."""
+    """Dynamic shared memory of K1/K3: at C 32 and 64 (`csrc/fused_decode.cu`
+    `Layout`) A split into TF32 hi/lo, c, the radiance rows, pe rows, br,
+    and 16 warps' 16-point s tiles; at C 128 (`csrc/fused_decode_c128.cu`
+    `FwdLayout`) A unsplit and 8 warps' s tiles."""
     n_cols = -(-(hidden + 1) // 16) * 16
-    return 4 * (2 * C * n_cols + n_cols + 4 * n_cols + 4 * pe_dim + 4 + 16 * 16 * (C + 4))
+    a_words, warps = (C * n_cols, 8) if C == 128 else (2 * C * n_cols, 16)
+    return 4 * (a_words + n_cols + 4 * n_cols + 4 * pe_dim + 4 + warps * 16 * (C + 4))
 
 
 def bwd_smem_bytes(C: int, hidden: int, pe_dim: int) -> int:
-    """Dynamic shared memory of K2 (`csrc/fused_decode_bwd.cu` `Layout`,
-    32-point tiles)."""
+    """Dynamic shared memory of K2, 32-point tiles: at C 32 and 64
+    (`csrc/fused_decode_bwd.cu` `Layout`) A split, the s tile split and two
+    d_s buffers; at C 128 (`csrc/fused_decode_c128.cu` `BwdLayout`) each of
+    the three unsplit and single."""
     n_cols, tile = -(-(hidden + 1) // 8) * 8, 32
-    words = (2 * C * n_cols + n_cols + -(-(3 * (hidden + pe_dim + 1)) // 4) * 4
-             + 2 * tile * (C + 4) + tile * (n_cols + 4) + 2 * tile * (C + 4)
+    copies = 1 if C == 128 else 2
+    words = (copies * C * n_cols + n_cols + -(-(3 * (hidden + pe_dim + 1)) // 4) * 4
+             + copies * tile * (C + 4) + tile * (n_cols + 4) + copies * tile * (C + 4)
              + 2 * 2 * 8 * tile + 2 * 4 * tile + -(-(tile * pe_dim) // 4) * 4)
     return 4 * words
 
@@ -62,14 +93,15 @@ def bwd_smem_bytes(C: int, hidden: int, pe_dim: int) -> int:
 def kernels_take(C: int, hidden: int, pe_dim: int) -> bool:
     """True where K1, K3 and K2 all launch: C is one the kernels are built
     for, both layouts fit a block's shared memory, and K2's column checks
-    hold (`fused_decode_bwd.cu` `launch`: hidden + 1 padded to 8 at most
-    320 columns, and a thread each for the columns, the pe rows and dbr of
-    its 512). At pe_dim 27 that is hidden <= 279 at C 64, <= 319 at C 32."""
+    hold (`launch`: hidden + 1 padded to 8 at most 320 columns, 272 at C
+    128, and a thread each for the columns, the pe rows and dbr of its
+    512). At pe_dim 27 that is hidden <= 279 at C 64, <= 319 at C 32, <= 271
+    at C 128."""
     n_cols = -(-(hidden + 1) // 8) * 8
     return (C in SUPPORTED_CHANNELS
             and fwd_smem_bytes(C, hidden, pe_dim) <= SMEM_OPTIN_BYTES
             and bwd_smem_bytes(C, hidden, pe_dim) <= SMEM_OPTIN_BYTES
-            and n_cols <= 320 and n_cols + pe_dim + 1 <= 512)
+            and n_cols <= (272 if C == 128 else 320) and n_cols + pe_dim + 1 <= 512)
 
 
 def _lrelu(x):
@@ -182,25 +214,23 @@ def fused_sample_decode_bwd_reference(
     return d_grid.reshape(grid.shape), dA, dc, dWr, dbr
 
 
-def _library(name: str):
+def _kernel_function(name: str, C: int):
+    """The C function that launches entry point `name` at C channels
+    (`KERNEL_FUNCTIONS`; the same arguments at every C)."""
     from . import _build
 
-    lib = _build.load(name)
-    if not getattr(lib, "_argtypes_set", False):
+    lib, fn = KERNEL_FUNCTIONS[C][name]
+    f = getattr(_build.load(lib), fn)
+    if not getattr(f, "_argtypes_set", False):
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         dims = [i64, i32, i32, i32, i32, i32, i32, i32, i32]
-        if name == "fused_decode":
-            head = [ptr] * 7
-            tail = dims + [f32, f32, ptr]
-            lib.fused_decode_fwd.argtypes = head + [ptr] + tail
-            lib.fused_decode_fwd_normals.argtypes = head + [ptr, ptr] + tail
-            lib.fused_decode_fwd.restype = i32
-            lib.fused_decode_fwd_normals.restype = i32
+        if name == "fused_decode_bwd":
+            f.argtypes = [ptr] * 12 + dims + [f32, ptr]
         else:
-            lib.fused_decode_bwd.argtypes = [ptr] * 12 + dims + [f32, ptr]
-            lib.fused_decode_bwd.restype = i32
-        lib._argtypes_set = True
-    return lib
+            f.argtypes = [ptr] * (8 if name == "fused_decode_fwd" else 9) + dims + [f32, f32, ptr]
+        f.restype = i32
+        f._argtypes_set = True
+    return f
 
 
 def _kernel_operands(grid, A, c, Wr, br, points, pe_dirs, hidden, **extra):
@@ -256,21 +286,21 @@ def _fused_sample_decode_cuda(grid, A, c, Wr, br, points, pe_dirs, extent, hidde
     out = torch.empty((n, lanes), dtype=torch.float32, device=points.device)
     if n == 0:
         return _split_lanes(out.reshape(*points.shape[:-1], lanes))
-    lib = _library("fused_decode")
+    C = dims[5]
+    name = "fused_decode_fwd" if g1 is None else "fused_decode_fwd_normals"
+    launch = _kernel_function(name, C)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
         head = [ops[k].data_ptr() for k in ("points", "pe", "grid", "A", "c", "Wr", "br")]
         tail = dims + [float(extent) / D, D / float(extent), stream]
         if g1 is None:
-            name = "fused_decode_fwd"
-            err = lib.fused_decode_fwd(*head, out.data_ptr(), *tail)
+            err = launch(*head, out.data_ptr(), *tail)
         else:
-            name = "fused_decode_fwd_normals"
             g1_c = g1.contiguous()
-            err = lib.fused_decode_fwd_normals(*head, g1_c.data_ptr(), out.data_ptr(), *tail)
+            err = launch(*head, g1_c.data_ptr(), out.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    _launches[name] += 1
+    _count_launch(name, C)
     return _split_lanes(out.reshape(*points.shape[:-1], lanes))
 
 
@@ -289,10 +319,10 @@ def _fused_sample_decode_bwd_cuda(grid, A, c, Wr, br, points, pe_dirs, extent, h
     dc = torch.zeros((j_pad,), dtype=torch.float32, device=dev)
     dWr = torch.zeros((hidden + pe_dim + 1, 3), dtype=torch.float32, device=dev)
     if n > 0:
-        lib = _library("fused_decode_bwd")
+        launch = _kernel_function("fused_decode_bwd", C)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.fused_decode_bwd(
+            err = launch(
                 ops["points"].data_ptr(), ops["pe"].data_ptr(), g4.data_ptr(),
                 *(ops[k].data_ptr() for k in ("grid", "A", "c", "Wr", "br")),
                 d_grid.data_ptr(), dA.data_ptr(), dc.data_ptr(), dWr.data_ptr(),
@@ -300,7 +330,7 @@ def _fused_sample_decode_bwd_cuda(grid, A, c, Wr, br, points, pe_dirs, extent, h
             )
         if err != 0:
             raise RuntimeError(f"fused_decode_bwd launch failed: cudaError {err}")
-        _launches["fused_decode_bwd"] += 1
+        _count_launch("fused_decode_bwd", C)
     n_out = hidden + 1
     return d_grid, dA[:, :n_out], dc[:n_out], dWr[:-1], dWr[-1]
 

@@ -33,8 +33,12 @@ from torch.autograd.function import once_differentiable
 from .voxel import hat_corners
 
 # largest D*H*W*C for which the implicit function picks this sampler (and
-# the fused decode) by default: the release scale, 16^3 x 64
+# the fused decode) by default off the card, as the JAX package does on its
+# accelerator: 16^3 x 64, the TPU's limit (`models/implicit.py`
+# `sampler_route`; on the card the kernels' 32-bit offsets set the limit)
 DEFAULT_MAX_GC = 16 ** 3 * 64
+# largest D*H*W*C that these kernels and the fused decode index with 32-bit offsets
+KERNEL_MAX_GC = 2 ** 31 - 1
 ENTRY_POINTS = ("kron_sample_fwd", "kron_sample_dgrid", "kron_sample_dpoints")
 
 _launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
@@ -161,7 +165,7 @@ def check_flat_index(grid_shape) -> None:
     n = 1
     for d in grid_shape:
         n *= int(d)
-    if n >= 2 ** 31:
+    if n > KERNEL_MAX_GC:
         raise ValueError(f"grid {tuple(grid_shape)} has {n} elements: 32-bit offsets take < 2**31")
 
 

@@ -19,10 +19,10 @@ D, C, HIDDEN, PE_DIM, EXTENT = 8, 32, 48, 27, 4.0
 R, P = 6, 9
 
 
-def _inputs(seed, on_planes=False):
+def _inputs(seed, on_planes=False, channels=C):
     rs = np.random.RandomState(seed)
-    grid = np.tanh(rs.randn(D, D, D, C)).astype(np.float32)
-    A = (rs.randn(C, HIDDEN + 1) / 6).astype(np.float32)
+    grid = np.tanh(rs.randn(D, D, D, channels)).astype(np.float32)
+    A = (rs.randn(channels, HIDDEN + 1) / 6).astype(np.float32)
     c = (rs.randn(HIDDEN + 1) * 0.1).astype(np.float32)
     Wr = (rs.randn(HIDDEN + PE_DIM, 3) / 8).astype(np.float32)
     br = (rs.randn(3) * 0.1).astype(np.float32)
@@ -54,10 +54,13 @@ def _run_both(inputs, normals):
 
 @pytest.mark.parametrize("normals", [False, True], ids=["K1", "K3"])
 @pytest.mark.parametrize("on_planes", [False, True], ids=["off_planes", "on_planes"])
-def test_plain_matches_jax_kernel(normals, on_planes):
+@pytest.mark.parametrize("channels", [C, 128])
+def test_plain_matches_jax_kernel(normals, on_planes, channels):
     """Both float32 (JAX at precision="highest"); the kernels sum in another
-    order than the gather + matmul, so 1e-5 relative with a 1e-6 floor."""
-    j_out, t_out = _run_both(_inputs(3, on_planes), normals)
+    order than the gather + matmul, so 1e-5 relative with a 1e-6 floor. At
+    C 128 (the reference model's grid width) too: 8^3 x 128 is within the
+    JAX package's size limit for its fused decode."""
+    j_out, t_out = _run_both(_inputs(3, on_planes, channels), normals)
     assert len(t_out) == (3 if normals else 2)
     for a, b in zip(j_out, t_out):
         assert a.shape == b.shape

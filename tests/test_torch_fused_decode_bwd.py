@@ -24,10 +24,10 @@ NAMES = ("d_grid", "dA", "dc", "dWr", "dbr")
 REL_TOL = 1e-5
 
 
-def _inputs(seed):
+def _inputs(seed, channels=C):
     rs = np.random.RandomState(seed)
-    grid = np.tanh(rs.randn(D, D, D, C)).astype(np.float32)
-    A = (rs.randn(C, HIDDEN + 1) / 6).astype(np.float32)
+    grid = np.tanh(rs.randn(D, D, D, channels)).astype(np.float32)
+    A = (rs.randn(channels, HIDDEN + 1) / 6).astype(np.float32)
     c = (rs.randn(HIDDEN + 1) * 0.1).astype(np.float32)
     Wr = (rs.randn(HIDDEN + PE_DIM, 3) / 8).astype(np.float32)
     br = (rs.randn(3) * 0.1).astype(np.float32)
@@ -66,10 +66,11 @@ def _jax_vjp(grid, A, c, Wr, br, pts, pe, g, normals):
 
 
 @pytest.mark.parametrize("normals", [False, True], ids=["K1", "K3"])
-def test_plain_backward_matches_jax_kernel(normals):
+@pytest.mark.parametrize("channels", [C, 128])
+def test_plain_backward_matches_jax_kernel(normals, channels):
     """With g1 the forward has a normals output; its cotangent (random here)
-    is dropped by both."""
-    grid, A, c, Wr, br, pts, pe, g = _inputs(3)
+    is dropped by both. At C 128 (the reference model's grid width) too."""
+    grid, A, c, Wr, br, pts, pe, g = _inputs(3, channels)
     want = _jax_vjp(grid, A, c, Wr, br, pts, pe, g, normals)
     got = fd.fused_sample_decode_bwd_reference(
         *(torch.from_numpy(x) for x in (grid, A, c, Wr, br, pts, pe)), EXTENT, HIDDEN,

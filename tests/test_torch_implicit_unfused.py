@@ -19,6 +19,7 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict
 
+from holo_diffusion_tpu.config.config import _CONFIG_DIR as J_CONFIG_DIR
 from holo_diffusion_tpu.config.config import load_config as j_load_config
 from holo_diffusion_tpu.config.config import model_args_from_config as j_model_args
 from holo_diffusion_tpu.geometry import rays as jrays
@@ -416,11 +417,15 @@ def test_model_training_objective_and_gradients_match_jax():
 def test_model_args_read_the_sampler_as_jax(config):
     """Each YAML of the port gives JAX's `sampler` ("packed" when the YAML
     names none), with or without an override; no config key sets
-    fuse_decode or collapse_density."""
+    fuse_decode or collapse_density. A YAML of the port alone (the
+    reference model's 32^3 x 128 grid, `hydrant_g32c128`) is read by JAX's
+    loader and translator from the port's file."""
     override = ["model_factory_ImplicitronModelFactory_args.model_HoloDiffusionModel_args."
                 "implicit_function_HoloVoxelGridImplicitFunction_args.sampler=fused"]
+    port_only = not os.path.exists(os.path.join(J_CONFIG_DIR, config + ".yaml"))
+    j_name = os.path.join(CONFIG_DIR, config + ".yaml") if port_only else config
     for ov in ([], override):
         t = model_args_from_config(load_config(config, ov))
-        j = j_model_args(j_load_config(config, ov))
+        j = j_model_args(j_load_config(j_name, ov))
         assert t["sampler"] == j["sampler"] == ("fused" if ov else "packed")
         assert "fuse_decode" not in t and "collapse_density" not in t

@@ -267,6 +267,39 @@ def test_host_build_raises_with_the_compilers_output(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+@pytest.mark.parametrize("call", ["load", "build"])
+def test_host_library_from_two_threads_against_an_empty_build_dir(tmp_path, monkeypatch, call):
+    """Two threads of one process that first ask for the same host library
+    at once, as the loader's threads do, both get it: `load` builds it once
+    and each gets the one loaded library; `build` called from both compiles
+    into a temporary file of each thread before publishing the library."""
+    import threading
+
+    (tmp_path / "twice.cpp").write_text('extern "C" int twice(int x) { return 2 * x; }\n')
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    start = threading.Barrier(2)
+    got, errors = [], []
+
+    def ask():
+        start.wait()
+        try:
+            got.append(_build.load("twice") if call == "load" else _build.build(["twice"]))
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=ask) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == []
+    assert [p.name for p in (tmp_path / "build").iterdir() if p.suffix != ".log"] == [_build.library_path("twice").name]
+    if call == "load":
+        assert got[0] is got[1] and got[0].twice(21) == 42
+
+
 def test_host_library_key_covers_source_and_flags(tmp_path, monkeypatch):
     (tmp_path / "p.cpp").write_text("int p;\n")
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)

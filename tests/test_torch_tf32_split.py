@@ -312,6 +312,56 @@ def test_backward_errors_apart_from_near_zero_pre_activations():
         assert (away == rel["d_grid"]) if apart else away == 0
 
 
+def test_slope_safe_cotangent_zeroes_the_points_near_a_slope_change():
+    """`chip_smoke.slope_safe_cotangent` zeroes the cotangent of exactly the
+    points with a nonzero pre-activation within 1e-5 of 0, in the density
+    net or in the radiance head, and keeps the rest; with it, moving such
+    pre-activations across 0 leaves the plain backward's cotangents
+    unchanged."""
+    from holo_diffusion_torch.ops import fused_decode as fd
+
+    slope_safe_cotangent = _chip_smoke().slope_safe_cotangent
+    rs = np.random.RandomState(6)
+    D, C_, hidden, pe_dim, extent, R, P = 4, 8, 6, 3, 4.0, 3, 4
+    grid = torch.from_numpy(rs.randn(D, D, D, C_).astype(np.float32))
+    A = torch.from_numpy(rs.randn(C_, hidden + 1).astype(np.float32))
+    c = torch.from_numpy(rs.randn(hidden + 1).astype(np.float32))
+    Wr = torch.from_numpy(rs.randn(hidden + pe_dim, 3).astype(np.float32))
+    br = torch.zeros(3)
+    pe = torch.from_numpy(rs.randn(R, pe_dim).astype(np.float32))
+    pts = torch.from_numpy(rs.uniform(-1.4, 1.4, (R, P, 3)).astype(np.float32))
+    s = sample_voxel_grid_world(grid, pts.reshape(-1, 3), extent)
+    # point 5's density column 2 a hair above 0, point 7's column 4 a hair
+    # below; point 9's radiance output 1 a hair above 0
+    c[2] = 4e-6 - float((s @ A)[5, 2])
+    c[4] = -8e-6 - float((s @ A)[7, 4])
+    pre = s @ A + c
+    rin = torch.cat([F.leaky_relu(pre[:, :hidden], 0.2), pe[:, None].expand(R, P, pe_dim).reshape(-1, pe_dim)], -1)
+    br[1] = 3e-6 - float((rin @ Wr)[9, 1])
+    rpre = rin @ Wr + br
+    near = ((pre != 0) & (pre.abs() < 1e-5)).any(-1) | ((rpre != 0) & (rpre.abs() < 1e-5)).any(-1)
+    assert bool(near[5]) and bool(near[7]) and bool(near[9])
+    g = torch.from_numpy(rs.randn(R, P, 4).astype(np.float32))
+    args = (grid, A, c, Wr, br, pts, pe, extent, hidden)
+    safe, zeroed = slope_safe_cotangent(g, args)
+    assert zeroed == int(near.sum())
+    assert torch.equal(safe.reshape(-1, 4)[near], torch.zeros(zeroed, 4))
+    assert torch.equal(safe.reshape(-1, 4)[~near], g.reshape(-1, 4)[~near])
+    want = fd.fused_sample_decode_bwd_reference(*args, safe)
+    # the same pre-activations across 0: c and br moved by twice the gap
+    c_flip, br_flip = c.clone(), br.clone()
+    c_flip[2] -= 8e-6
+    c_flip[4] += 16e-6
+    br_flip[1] -= 6e-6
+    got = fd.fused_sample_decode_bwd_reference(grid, A, c_flip, Wr, br_flip, pts, pe, extent, hidden, safe)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    # the full cotangent sees the flips
+    full = fd.fused_sample_decode_bwd_reference(*args, g)
+    flipped = fd.fused_sample_decode_bwd_reference(grid, A, c_flip, Wr, br_flip, pts, pe, extent, hidden, g)
+    assert float((full[1] - flipped[1]).abs().max()) > 1e-2
+
+
 # ---- K5's tiles and its run-merged scatter
 
 
