@@ -138,8 +138,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
            step, peak and resting memory by epoch (growth bounded); the
            probes of a narrow model card vs CPU
   kernels summary, the card's name and power limit, and the result line.
-Twenty-three main paths, each with the launch counters zeroed right before it and
-read right after it: C-128 training (K3 and K2 at C 128 alone), serving
+Twenty-three main paths, each with its launches counted from right before
+it to right after it, by the kernels' own counters or, where the path
+renders chunked frames on the card (each chunk a graph's replay, which
+launches its kernels without a call into their wrappers), by name in a
+device trace (`traced_launches`; there K3 also launches once a pass in
+each chunk graph's warm-up): C-128 training (K3 and K2 at C 128 alone), serving
 (`sample` + `render`, which must launch K1 and K3), unfused serving (K4, K6
 and K7, no K1/K3), training (the 5 timed steps, which must launch K3 and K2,
 at C 64 alone), unfused training (K4, K5 and K6,
@@ -153,9 +157,10 @@ chunk of each frame, nothing else), the reconstruction model's training
 (K1 and K2 only) and the reconstructions (K1 twice a frame, nothing
 else); then sample quality's: the four extractors' sample evaluations
 (K3 twice a one-forward frame, nothing else), evaluation with LPIPS (K3
-twice a chunk of each target) and the loop with visualizations (K2 twice a
-step, K3 twice a step and twice a chunk of each validation and video
-frame); then the compact loop's (K2 twice a step, K3 twice a step and twice
+twice a chunk of each target) and the loop with visualizations, whose
+own trace leaves no room for a second, by its host's launches (K2 twice a
+step, K3 twice a step and once a pass in each chunk graph's warm-up) and
+one graph replay a chunk of each validation and video frame; then the compact loop's (K2 twice a step, K3 twice a step and twice
 a chunk of each validation frame, nothing else); then the sharded sampling
 loop and the ray-sharded frame (K3 exactly twice, nothing else); then the
 rehearsal's 2 epochs (K2 twice a step, K3 twice a step and twice a chunk of
@@ -1052,6 +1057,87 @@ def reset_launch_counts_all():
         mod.reset_launch_counts()
 
 
+# the hand-written kernels (csrc/) by the names a device trace gives them:
+# the entry point that launches each, and its channel count where the name
+# holds it (group C) or where the kernel has one alone
+TRACED_KERNELS = (
+    (r"fused_decode_kernel<(?P<C>\d+), ?true>", "fused_decode_fwd_normals", None),
+    (r"fused_decode_kernel<(?P<C>\d+), ?false>", "fused_decode_fwd", None),
+    (r"fused_decode_bwd_kernel<(?P<C>\d+)>", "fused_decode_bwd", None),
+    (r"decode_c128_fwd_kernel<true>", "fused_decode_fwd_normals", 128),
+    (r"decode_c128_fwd_kernel<false>", "fused_decode_fwd", 128),
+    (r"decode_c128_bwd_kernel", "fused_decode_bwd", 128),
+    (r"kron_sample_fwd_kernel", "kron_sample_fwd", None),
+    (r"kron_sample_dgrid_kernel", "kron_sample_dgrid", None),
+    (r"kron_sample_dpoints_kernel", "kron_sample_dpoints", None),
+    (r"trilinear_sample_onehot_kernel", "trilinear_sample_onehot", None),
+    (r"view_sample_fwd_kernel", "view_sample_fwd", None),
+    (r"view_sample_bwd_kernel", "view_sample_bwd", None),
+)
+TRACED_KERNEL_PARTS = ("fused_decode", "decode_c128", "kron_sample", "trilinear_sample", "view_sample")
+
+
+def kernel_launch_counts(names):
+    """{entry point: launches} of the device kernels named `names` (and
+    "<entry point>@C<C>" where `TRACED_KERNELS` knows the channel count);
+    raises on a kernel of csrc/ that no pattern names."""
+    import re
+
+    counts = {}
+    for name in names:
+        for pattern, entry, C in TRACED_KERNELS:
+            found = re.search(pattern, name)
+            if found:
+                C = found.groupdict().get("C") or C
+                for key in (entry, f"{entry}@C{C}") if C else (entry,):
+                    counts[key] = counts.get(key, 0) + 1
+                break
+        else:
+            if any(part in name for part in TRACED_KERNEL_PARTS):
+                raise AssertionError(f"device kernel {name!r} matches no entry of TRACED_KERNELS")
+    return counts
+
+
+class traced_launches:
+    """The hand-written kernels the device runs from here to `counts()`,
+    counted by name (`kernel_launch_counts`) in a torch.profiler trace of
+    the device alone, with the program's chunk counters over the same
+    window (`chunk_graph_captures`, `chunks_graphed`, `chunks_eager`). A
+    chunk graph's replay (render_eval.py) launches its kernels without a
+    call into their wrappers, so the wrappers' counters
+    (`launch_counts_all`) count a graphed frame's warm-ups and not its
+    chunks; the trace counts every launch, the warm-ups' too
+    (`graph_warmup_launches`). Wall times taken inside include the trace's
+    cost."""
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        from holo_diffusion_torch.utils.profiling import reset_counters
+
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+        reset_counters()
+
+    def counts(self):
+        import torch
+
+        from holo_diffusion_torch.utils.profiling import counters
+
+        torch.cuda.synchronize()
+        chunks = {k: n for k, n in counters().items() if k.startswith("chunk")}
+        self.prof.stop()
+        return {**kernel_launch_counts(e.name() for e in self.prof.profiler.kineto_results.events()
+                                       if "CUDA" in str(e.device_type())), **chunks}
+
+
+def graph_warmup_launches(counts, passes=2):
+    """K3's launches in the chunk graphs' warm-ups of a `traced_launches`
+    window: each capture first renders its chunk by its own launches, K3
+    once a pass (hydrant's 2), and the capture itself launches nothing."""
+    return passes * counts.get("chunk_graph_captures", 0)
+
+
 def serve_unfused_phase(models, v, out_dir, dev, results):
     """The unfused serving main path on the sampled grid `v`: 2 poses with
     sampler "fused" (K4, normals by K6), 1 with collapse_density="on" (K4
@@ -1060,7 +1146,7 @@ def serve_unfused_phase(models, v, out_dir, dev, results):
 
     from holo_diffusion_torch.utils.flyaround import render_flyaround
 
-    reset_launch_counts_all()
+    launches = traced_launches()
     for label, poses in (("fused_sampler", 2), ("collapse", 1), ("pallas_sampler", 1)):
         m = models[label]
         torch.cuda.synchronize()
@@ -1071,7 +1157,7 @@ def serve_unfused_phase(models, v, out_dir, dev, results):
         dt = time.perf_counter() - t0
         emit({"phase": "serve_unfused", "variant": label, "poses": poses,
               "size": [m.render_image_height, m.render_image_width], "s_per_frame": dt / poses})
-    counts = launch_counts_all()
+    counts = launches.counts()
     emit({"phase": "main_path", "path": "serve_unfused", "launches": counts})
     launched = ("kron_sample_fwd", "kron_sample_dpoints", "trilinear_sample_onehot")
     expect_launches(counts, "unfused serving", some=launched,
@@ -1527,7 +1613,7 @@ def train_loop_phase(here, dev, train_step_busy_ms, results):
     records = _Records()
     ck_log.addHandler(records)
 
-    reset_launch_counts_all()
+    launches = traced_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     exp_a = Experiment(cfg)
@@ -1552,7 +1638,7 @@ def train_loop_phase(here, dev, train_step_busy_ms, results):
     state_b, stats = exp_b.run(max_epochs=3)
     torch.cuda.synchronize()
     wall_b = time.perf_counter() - t0
-    counts = launch_counts_all()
+    counts = launches.counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     model = state_b.model
     left = [e for e, _ in list_checkpoints(exp_dir)]
@@ -1568,7 +1654,8 @@ def train_loop_phase(here, dev, train_step_busy_ms, results):
     emit({"phase": "main_path", "path": "train_loop", "launches": counts})
     expect_launches(counts, "training loop",
                     exactly={"fused_decode_bwd": 2 * steps,
-                             "fused_decode_fwd_normals": 2 * steps + 3 * frame_launches},
+                             "fused_decode_fwd_normals": 2 * steps + 3 * frame_launches
+                             + graph_warmup_launches(counts, model.num_passes)},
                     none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["fused_decode_bwd"]["train_loop_launches"] = counts["fused_decode_bwd"]
     results["fused_decode_fwd_normals"]["train_loop_launches"] = counts["fused_decode_fwd_normals"]
@@ -1576,7 +1663,7 @@ def train_loop_phase(here, dev, train_step_busy_ms, results):
     # serve from the checkpoint
     out_dir = os.path.join(here, "build", "chip_smoke", "serve_checkpoint")
     shutil.rmtree(out_dir, ignore_errors=True)
-    reset_launch_counts_all()
+    launches = traced_launches()
     t0 = time.perf_counter()
     # at hydrant's 512^2 (the exp_dir= path defaults to the JAX CLI's 256^2)
     paths = cli.generate_samples_main([f"exp_dir={exp_dir}", "num_samples=1", "n_flyaround_poses=1",
@@ -1584,9 +1671,10 @@ def train_loop_phase(here, dev, train_step_busy_ms, results):
                                        f"output_directory={out_dir}", "save_voxel_features=true"])
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    serve_counts = launch_counts_all()
+    serve_counts = launches.counts()
     emit({"phase": "main_path", "path": "serve_checkpoint", "launches": serve_counts})
-    expect_launches(serve_counts, "serving from the checkpoint", exactly={"fused_decode_fwd_normals": frame_launches},
+    expect_launches(serve_counts, "serving from the checkpoint",
+                    exactly={"fused_decode_fwd_normals": frame_launches + graph_warmup_launches(serve_counts)},
                     none=("fused_decode_bwd", "fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     grid = torch.from_numpy(np.load(os.path.join(out_dir, "sample_00000", "voxel_features.npy"))).to(dev)
     png = read_png_rgb(os.path.join(out_dir, "sample_00000", "images_render_frames", "frame_00000.png"))
@@ -1722,12 +1810,12 @@ def co3d_phase(here, dev, results):
     exp = Experiment(cfg)
     init = {n: p.detach().clone() for n, p in exp.init_state().model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts_all()
+    launches = traced_launches()
     t0 = time.perf_counter()
     state, stats = exp.run(max_epochs=2)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = launch_counts_all()
+    counts = launches.counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     emit({"phase": "main_path", "path": "train_co3d", "launches": counts})
     model = state.model
@@ -1737,7 +1825,8 @@ def co3d_phase(here, dev, results):
         / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
     expect_launches(counts, "CO3D training loop",
                     exactly={"fused_decode_bwd": 2 * steps,
-                             "fused_decode_fwd_normals": 2 * steps + 2 * frame_launches},
+                             "fused_decode_fwd_normals": 2 * steps + 2 * frame_launches
+                             + graph_warmup_launches(counts, model.num_passes)},
                     none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["fused_decode_bwd"]["train_co3d_launches"] = counts["fused_decode_bwd"]
     results["fused_decode_fwd_normals"]["train_co3d_launches"] = counts["fused_decode_fwd_normals"]
@@ -1882,7 +1971,7 @@ def train_full_phase(here, dev, results, co3d_s_per_step):
     ck_log.addHandler(records)
 
     # ---- the main path: run A, a bitwise restore, run B
-    reset_launch_counts_all()
+    launches = traced_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     exp_a = Experiment(cfg)
@@ -1904,7 +1993,7 @@ def train_full_phase(here, dev, results, co3d_s_per_step):
     state, stats = exp_b.run(max_epochs=2)
     torch.cuda.synchronize()
     wall_b = time.perf_counter() - t0
-    counts = launch_counts_all()
+    counts = launches.counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     emit({"phase": "main_path", "path": "train_full", "launches": counts})
     model = state.model
@@ -1914,7 +2003,8 @@ def train_full_phase(here, dev, results, co3d_s_per_step):
         / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
     expect_launches(counts, "full training loop",
                     exactly={"fused_decode_bwd": 2 * steps,
-                             "fused_decode_fwd_normals": 2 * steps + 2 * frame_launches},
+                             "fused_decode_fwd_normals": 2 * steps + 2 * frame_launches
+                             + graph_warmup_launches(counts, model.num_passes)},
                     none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["fused_decode_bwd"]["train_full_launches"] = counts["fused_decode_bwd"]
     results["fused_decode_fwd_normals"]["train_full_launches"] = counts["fused_decode_fwd_normals"]
@@ -1967,7 +2057,7 @@ def train_full_phase(here, dev, results, co3d_s_per_step):
         raise AssertionError(f"the warmed sampler: {sampler_check}")
 
     # ---- evaluation through the EMA (the eval_only main path)
-    reset_launch_counts_all()
+    launches = traced_launches()
     timings = {}
     t0 = time.perf_counter()
     exp_e = Experiment(cfg)
@@ -1977,10 +2067,12 @@ def train_full_phase(here, dev, results, co3d_s_per_step):
     n_targets = len(exp_e.data.eval_batches)
     eval_hw = [exp_e.data_args["image_height"], exp_e.data_args["image_width"]]
     del exp_e
-    eval_counts = launch_counts_all()
+    eval_counts = launches.counts()
     emit({"phase": "main_path", "path": "eval_only", "launches": eval_counts})
     chunks = math.ceil(eval_hw[0] * eval_hw[1] / rays_per_chunk)
-    expect_launches(eval_counts, "evaluation", exactly={"fused_decode_fwd_normals": res["n_evals"] * 2 * chunks},
+    expect_launches(eval_counts, "evaluation",
+                    exactly={"fused_decode_fwd_normals": res["n_evals"] * 2 * chunks
+                             + graph_warmup_launches(eval_counts)},
                     none=("fused_decode_bwd", "fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["fused_decode_fwd_normals"]["eval_only_launches"] = eval_counts["fused_decode_fwd_normals"]
     dumped = os.path.join(exp_dir, "eval_results_epoch_00000001.json")
@@ -1994,15 +2086,16 @@ def train_full_phase(here, dev, results, co3d_s_per_step):
     # ---- sampling through the EMA from the checkpoint
     out_dir = os.path.join(here, "build", "chip_smoke", "serve_full")
     shutil.rmtree(out_dir, ignore_errors=True)
-    reset_launch_counts_all()
+    launches = traced_launches()
     t0 = time.perf_counter()
     paths = cli.generate_samples_main([f"exp_dir={exp_dir}", "num_samples=1", "n_flyaround_poses=1",
                                        "render_size=[512,512]", "use_ddim=true", "max_iter=10", "use_ema=true",
                                        f"output_directory={out_dir}"])
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    serve_counts = launch_counts_all()
-    expect_launches(serve_counts, "sampling through the EMA", exactly={"fused_decode_fwd_normals": frame_launches},
+    serve_counts = launches.counts()
+    expect_launches(serve_counts, "sampling through the EMA",
+                    exactly={"fused_decode_fwd_normals": frame_launches + graph_warmup_launches(serve_counts)},
                     none=("fused_decode_bwd", "fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     png = read_png_rgb(os.path.join(out_dir, "sample_00000", "images_render_frames", "frame_00000.png"))
 
@@ -2098,13 +2191,13 @@ def flyaround_full_phase(here, dev, results):
                                 ("flyaround_progressive", ["max_iter=10", "progressive_sampling_steps_per_render=2"],
                                  1 + 2 * (poses - 1))):
         out_dir = os.path.join(out_root, label)
-        reset_launch_counts_all()
+        launches = traced_launches()
         torch.cuda.reset_peak_memory_stats()
         paths, wall = timed(lambda: cli.generate_samples_main([*sample_args, *extra, f"output_directory={out_dir}"]))
-        counts = launch_counts_all()
+        counts = launches.counts()
         emit({"phase": "main_path", "path": label, "launches": counts})
         k3 = poses * frame_launches + (1 if label == "flyaround_skip" else 0)
-        expect_launches(counts, label, exactly={"fused_decode_fwd_normals": k3},
+        expect_launches(counts, label, exactly={"fused_decode_fwd_normals": k3 + graph_warmup_launches(counts)},
                         none=("fused_decode_fwd", *others))
         got = sorted(paths["sample_00000"])
         frames = [read_png_rgb(os.path.join(out_dir, "sample_00000", f"{s}_frames", f"frame_{i:05d}.png"))
@@ -2352,13 +2445,14 @@ def quality_phase(here, dev, results):
                 f"extractor={extractor}", f"dump_path={os.path.join(out, extractor + '.json')}"]
         if extractor in ("inception", "vgg"):
             args.append(f"weights_path={inc_path if extractor == 'inception' else vgg_path}")
-        reset_launch_counts_all()
+        launches = traced_launches()
         timings = {}
         res, wall = timed(lambda: cli.evaluate_samples_main(args, timings=timings))
-        counts = launch_counts_all()
+        counts = launches.counts()
         emit({"phase": "main_path", "path": f"sample_eval_{extractor}", "launches": counts})
         expect_launches(counts, f"sample evaluation ({extractor})",
-                        exactly={"fused_decode_fwd_normals": 2 * 2 * 4}, none=others)
+                        exactly={"fused_decode_fwd_normals": 2 * 2 * 4 + graph_warmup_launches(counts)},
+                        none=others)
         scores = [res[f"{extractor}_{k}"] for k in ("fid", "kid_mean", "kid_std")]
         if (not all(math.isfinite(x) for x in scores) or res["n_generated"] != 8
                 or res["comparable_to_inception_fid"] is not (extractor == "inception")):
@@ -2425,7 +2519,7 @@ def quality_phase(here, dev, results):
 
     # ---- LPIPS in the evaluation, over the tree's eval batches
     cfg = load_config(os.path.join(full_exp, "expconfig.yaml"), [f"lpips_vgg_weights_path={vgg_path}"])
-    reset_launch_counts_all()
+    launches = traced_launches()
     timings = {}
     exp = Experiment(cfg)
     res, eval_s = timed(lambda: exp.run_eval_only(timings=timings))
@@ -2434,9 +2528,10 @@ def quality_phase(here, dev, results):
     model = exp.model
     chunks = math.ceil(hw[0] * hw[1] / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
     del exp, model
-    counts = launch_counts_all()
+    counts = launches.counts()
     emit({"phase": "main_path", "path": "lpips_eval", "launches": counts})
-    expect_launches(counts, "evaluation with LPIPS", exactly={"fused_decode_fwd_normals": 2 * chunks * n_targets},
+    expect_launches(counts, "evaluation with LPIPS",
+                    exactly={"fused_decode_fwd_normals": 2 * chunks * n_targets + graph_warmup_launches(counts)},
                     none=others)
     results["fused_decode_fwd_normals"]["lpips_eval_launches"] = counts["fused_decode_fwd_normals"]
     lpips = [r["lpips"] for r in res["records"]]
@@ -2467,19 +2562,26 @@ def quality_phase(here, dev, results):
         lg.setLevel(logging.INFO)
         lg.addHandler(records)
     reset_launch_counts_all()
-    (state, stats), loop_s = timed(lambda: Experiment(cfg).run(max_epochs=1))
+    with counted_chunk_graphs() as graphed:
+        (state, stats), loop_s = timed(lambda: Experiment(cfg).run(max_epochs=1))
     for lg in loggers:
         lg.removeHandler(records)
     counts = launch_counts_all()
-    emit({"phase": "main_path", "path": "vis_loop", "launches": counts})
+    emit({"phase": "main_path", "path": "vis_loop", "launches": counts, "chunk_graphs": graphed})
     model = state.model
-    frame = model.num_passes * math.ceil(model.render_image_height * model.render_image_width
-                                         / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
+    chunks = math.ceil(model.render_image_height * model.render_image_width
+                       / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
     video_frames = math.ceil(model.schedule.num_timesteps / 50)
     steps = state.step
+    # the loop's own trace (profile=true) leaves no room for a second one,
+    # so these are the host's launches: K3 and K2 twice a step, and K3 once
+    # a pass in each chunk graph's warm-up; every chunk of every frame
+    # replays a graph, whose kernels launch without a call
+    if graphed["replays"] != chunks * (1 + video_frames):
+        raise AssertionError(f"loop with visualizations: {graphed}, expected {chunks * (1 + video_frames)} replays")
     expect_launches(counts, "loop with visualizations",
                     exactly={"fused_decode_bwd": 2 * steps,
-                             "fused_decode_fwd_normals": 2 * steps + frame * (1 + video_frames)},
+                             "fused_decode_fwd_normals": 2 * steps + model.num_passes * graphed["captures"]},
                     none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["fused_decode_fwd_normals"]["vis_loop_launches"] = counts["fused_decode_fwd_normals"]
     has_matplotlib = importlib.util.find_spec("matplotlib") is not None
@@ -2580,12 +2682,12 @@ def scale_out_phase(here, dev, results):
     runs = {}
     for label, extra in (("full", ()), ("compact", ("compact_sources=true",))):
         exp = Experiment(cfg(label, "disable_validation=false", *extra))
-        reset_launch_counts_all()
+        launches = traced_launches()
         t0 = time.perf_counter()
         state, stats = exp.run(max_epochs=2)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = launch_counts_all()
+        counts = launches.counts()
         if label == "compact":
             emit({"phase": "main_path", "path": "scale_out_compact", "launches": counts})
         model = state.model
@@ -2594,7 +2696,8 @@ def scale_out_phase(here, dev, results):
             / (model.chunk_size_grid // model.n_pts_per_ray_evaluation))
         expect_launches(counts, f"{label} loop",
                         exactly={"fused_decode_bwd": 2 * state.step,
-                                 "fused_decode_fwd_normals": 2 * state.step + 2 * frame_launches},
+                                 "fused_decode_fwd_normals": 2 * state.step + 2 * frame_launches
+                                 + graph_warmup_launches(counts, model.num_passes)},
                         none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
         hist = stats.history
         if state.step != 4 or not all(math.isfinite(x) for e in hist for sp in ("train", "val")
@@ -2856,6 +2959,76 @@ def captured_decodes():
         implicit.fused_sample_decode = real
 
 
+@contextlib.contextmanager
+def captured_graph_decodes(model):
+    """The fused decodes of `model`'s graphed chunk loop (render_eval.py),
+    chunk by chunk, as `captured_decodes` gives them (points and cloned
+    outputs): the model's chunk graphs are captured anew inside, the decode
+    calls of each capture held (their points and outputs stay in the
+    graph's memory, which each replay rewrites) and cloned after each
+    replay of that graph."""
+    import inspect
+
+    import torch
+
+    from holo_diffusion_torch import render_eval
+    from holo_diffusion_torch.models import implicit
+
+    graphs = render_eval._ChunkGraphs
+    real = implicit.fused_sample_decode, graphs._capture, graphs.replay
+    signature = inspect.signature(real[0])
+    capturing, held, calls = [], {}, []
+
+    def decode(*args, **kw):
+        out = real[0](*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            capturing.append((signature.bind(*args, **kw).arguments["points"], out))
+        return out
+
+    def capture(self, *args, **kw):
+        del capturing[:]
+        entry = real[1](self, *args, **kw)
+        held[id(entry[2])] = list(capturing)
+        return entry
+
+    def replay(self, *args, **kw):
+        out = real[2](self, *args, **kw)
+        calls.extend(({"points": points.clone()}, tuple(o.clone() for o in outs)) for points, outs in held[id(out)])
+        return out
+
+    graphs._of.pop(model, None)
+    implicit.fused_sample_decode, graphs._capture, graphs.replay = decode, capture, replay
+    try:
+        yield calls
+    finally:
+        implicit.fused_sample_decode, graphs._capture, graphs.replay = real
+
+
+@contextlib.contextmanager
+def counted_chunk_graphs():
+    """{"captures": n, "replays": n}: the chunk graphs (render_eval.py)
+    captured and replayed while inside."""
+    from holo_diffusion_torch import render_eval
+
+    graphs = render_eval._ChunkGraphs
+    real = graphs._capture, graphs.replay
+    counted = {"captures": 0, "replays": 0}
+
+    def capture(self, *args, **kw):
+        counted["captures"] += 1
+        return real[0](self, *args, **kw)
+
+    def replay(self, *args, **kw):
+        counted["replays"] += 1
+        return real[1](self, *args, **kw)
+
+    graphs._capture, graphs.replay = capture, replay
+    try:
+        yield counted
+    finally:
+        graphs._capture, graphs.replay = real
+
+
 def decode_against_plain(args, out, rays_per_slice=8192):
     """A fused decode's outputs `out` against the plain version on the same
     inputs (`args`, by name), the plain version run over slices of rays so
@@ -2917,9 +3090,10 @@ def model_parallel_phase(here, dev, results):
     its grid at 512^2: K3 exactly twice, nothing else; both launches
     captured and held against the plain decode on their own inputs
     (KERNEL_TOL), with K3's time at that shape (CUDA events); then
-    `render_image_chunked` of the same grid (RENDER_TOL), with the two
-    frames' decode inputs and outputs compared pass by pass, and s per
-    frame for both (3 frames each after a warm-up);
+    `render_image_chunked` of the same grid (RENDER_TOL), the two frames'
+    decode inputs and outputs compared pass by pass (the chunks' decodes
+    read from their graphs after each replay), and s per frame for both (3
+    frames each after a warm-up);
     (4) card against CPU on one narrow instance of each new model at the
     JAX package's default widths (UNET_FAMILY_TOL of scale);
     (5) the extractor in bfloat16 against float32 on hydrant's 30 sources
@@ -3001,7 +3175,7 @@ def model_parallel_phase(here, dev, results):
                               "kron_sample_dpoints", "trilinear_sample_onehot"))
         k3 = results["fused_decode_fwd_normals"]
         k3["model_parallel_launches"] = counts["fused_decode_fwd_normals"]
-        with captured_decodes() as chunked:
+        with captured_graph_decodes(model) as chunked:
             ref = render_image_chunked(model, cam, grid[0], device=dev)
         render_err = {k: float((frame[k] - ref[k]).abs().max()) for k in frame}
         # K3 at the main path's shape: its two launches against the plain
@@ -3155,7 +3329,7 @@ def rehearsal_phase(here, dev, results):
     exp_log.setLevel(logging.INFO)
     records = _Records()
     exp_log.addHandler(records)
-    reset_launch_counts_all()
+    launches = traced_launches()
     t0 = time.perf_counter()
     try:
         summary, epochs = run_rehearsal(epochs_n, out_dir, exp_dir, steps_per_epoch=steps_n, device=dev)
@@ -3163,7 +3337,7 @@ def rehearsal_phase(here, dev, results):
         exp_log.removeHandler(records)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = launch_counts_all()
+    counts = launches.counts()
     emit({"phase": "main_path", "path": "rehearsal", "launches": counts})
     # K3 launches a chunked frame: 2 passes a chunk of 640 rays (hydrant's
     # chunk_size_grid 40960 over 64 points a ray)
@@ -3174,7 +3348,8 @@ def rehearsal_phase(here, dev, results):
     snapshot = margs["num_passes"] * math.ceil(256 * 256 / rays_per_chunk)
     steps = epochs_n * steps_n
     expected = {"fused_decode_bwd": 2 * steps,
-                "fused_decode_fwd_normals": 2 * steps + epochs_n * (val_frame + snapshot)}
+                "fused_decode_fwd_normals": 2 * steps + epochs_n * (val_frame + snapshot)
+                + graph_warmup_launches(counts, margs["num_passes"])}
     expect_launches(counts, "rehearsal", exactly=expected,
                     none=("fused_decode_fwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
     results["fused_decode_bwd"]["rehearsal_launches"] = counts["fused_decode_bwd"]
@@ -3347,7 +3522,7 @@ def main(argv=None):
     conv_flops, n_convs = unet_conv_flops(model, dev)
 
     # ---- main path: sample, then render (launch counts read after)
-    reset_launch_counts_all()
+    launches = traced_launches()
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3373,7 +3548,7 @@ def main(argv=None):
         emit({"phase": "render", "variant": label, "poses": poses,
               "size": [m.render_image_height, m.render_image_width],
               "s_per_frame": dt / poses, "streams": sorted(paths)})
-    counts = launch_counts_all()
+    counts = launches.counts()
     emit({"phase": "main_path", "path": "serve", "launches": counts})
     expect_launches(counts, "serving", some=("fused_decode_fwd", "fused_decode_fwd_normals"),
                     none=("fused_decode_bwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))

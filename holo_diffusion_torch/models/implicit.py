@@ -19,7 +19,9 @@ is collapsible, else autograd of the density head through the sampler.
 
 "auto" resolves by `decode_route` and `sampler_route`. Each decode call
 adds 1 to the counter `decodes_fused` or `decodes_layer`
-(`utils/profiling.py` `count`, while a torch profiler records).
+(`utils/profiling.py` `count`, while a torch profiler records). Inside a
+chunk's CUDA graph (`render_eval.py`) the call, its counter and its
+`holo.decode` span run at capture alone, not at each replay.
 """
 from __future__ import annotations
 

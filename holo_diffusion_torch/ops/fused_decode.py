@@ -11,7 +11,9 @@ grad, the call goes through `FusedSampleDecode`, a `torch.autograd.Function`
 whose backward is the backward kernel (the `jax.custom_vjp` of the JAX
 package). Each entry point counts its launches
 (`launch_counts`/`reset_launch_counts`), and by channel count
-(`launch_counts_by_channels`).
+(`launch_counts_by_channels`). A call made while a CUDA graph captures
+(`render_eval.py`) counts nothing: its kernel launches at each replay,
+which a device trace sees and these counters do not.
 """
 from __future__ import annotations
 
@@ -62,6 +64,8 @@ def reset_launch_counts() -> None:
 
 
 def _count_launch(name: str, C: int) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        return
     _launches[name] += 1
     key = f"{name}@C{C}"
     _launches_by_channels[key] = _launches_by_channels.get(key, 0) + 1

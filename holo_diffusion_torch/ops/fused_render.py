@@ -68,7 +68,8 @@ def _sample_cuda(grid: torch.Tensor, points: torch.Tensor, extent: float) -> tor
                 sample_layout(C)[0], float(extent) / D, stream)
         if err != 0:
             raise RuntimeError(f"trilinear_sample_onehot launch failed: cudaError {err}")
-        _launches["trilinear_sample_onehot"] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            _launches["trilinear_sample_onehot"] += 1
     return out
 
 

@@ -14,7 +14,8 @@ tensors they run the plain version. `KronSample` joins them as a
 launches the grid kernel only when the grid needs a gradient and the points
 kernel only when the points do, as XLA drops the unused d_points call in
 the JAX package. Each entry point counts its launches
-(`launch_counts`/`reset_launch_counts`).
+(`launch_counts`/`reset_launch_counts`), but not a call made while a CUDA
+graph captures, whose kernel launches at the graph's replays.
 
 The TPU computes the sample as a Kronecker-factored matrix product; on the
 H100 the grid stays in L2 and each kernel gathers (or scatters into) the 8
@@ -216,9 +217,10 @@ def _launch(name: str, pointers, grid_shape, n: int, extent: float, *tail, devic
             *pointers, n, D, H, W, C, layout_log2, float(extent) / D, *tail, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    _launches[name] += 1
-    key = f"{name}@C{C}"
-    _launches_by_channels[key] = _launches_by_channels.get(key, 0) + 1
+    if not torch.cuda.is_current_stream_capturing():
+        _launches[name] += 1
+        key = f"{name}@C{C}"
+        _launches_by_channels[key] = _launches_by_channels.get(key, 0) + 1
 
 
 def _fwd_cuda(grid, points, extent):

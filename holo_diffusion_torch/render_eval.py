@@ -8,9 +8,32 @@ n_pts_per_ray_evaluation` rays (the reference's chunking: 40960 points ->
 device memory stays bounded whatever the image size. `render_image_sharded`
 gives each rank of a mesh a contiguous share of the rays instead, rendered
 in one forward.
+
+On the card a render of more than one chunk replays each chunk from a CUDA
+graph: one chunk's render (its tightening by the empty-space skip
+included), captured once per chunk shape and replayed for every chunk of
+that shape, so the host makes two copies and one replay a chunk in place
+of the render's ~155 launches. The graphs live as long as the model, keyed
+by what the code observes (`_graph_key`: the storage of the model's
+parameters and buffers, the implicit function's modes, the float32 matmul
+precision; then the grid's and occupancy's shapes, the probes, the chunk's
+shape): weights updated in place are read live, weights moved or replaced
+capture anew. What runs in Python inside the render runs at the warm-up
+and the capture alone: the spans and `count` counters (`holo.render.*`,
+`holo.decode`, `decodes_fused`) and the kernels' launch counters, which
+count the warm-up's launches and not the capture's calls; a replay's
+kernels show only in a device trace. Each chunk adds 1 to
+the counter `chunks_graphed` or `chunks_eager`, each capture 1 to
+`chunk_graph_captures` (`utils/profiling.py` `count`, while a torch
+profiler records). Eager or graphed, a chunk renders through
+`render_packed` from the frame's packed rays into one packed frame. The
+CPU, single-chunk renders, `make_chunk_renderer` and
+`render_image_sharded` run eagerly.
 """
 from __future__ import annotations
 
+import itertools
+import weakref
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
@@ -24,10 +47,12 @@ from .models.renderer import RendererOutput
 from .ops.occupancy import occupancy_from_density, tighten_ray_bundle
 from .ops.voxel import voxel_coord_grid
 from .parallel.mesh import Mesh
-from .utils.profiling import span
+from .utils.profiling import count, span
 from .weights import check_keys
 
 Occupancy = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+# (occupancy mask (r, r, r), outside_occupied) of a render with the skip
+Skip = Tuple[torch.Tensor, Union[bool, torch.Tensor]]
 
 
 def make_chunk_render_fn(
@@ -117,6 +142,10 @@ def render_image_chunked(
     outside the volume empty, or the (mask, outside_occupied) pair of
     `compute_occupancy`), each chunk's rays are tightened to their occupied
     segments before rendering; without `occupancy` it is probed here.
+
+    The outputs are views of one packed (H * W, 5 or 8) frame. On the card,
+    with more than one chunk, each chunk replays the model's graph of its
+    shape (module docstring); elsewhere the chunks render eagerly.
     """
     dev = place(model, device)
     H = image_height or model.render_image_height
@@ -126,29 +155,159 @@ def render_image_chunked(
     step = max((model.chunk_size_grid or n_rays * n_pts) // n_pts, 1)
     bundle = model.full_grid_rays(camera[:1].to(dev), H, W)
     voxel_grid = voxel_grid.to(dev)
-    tighten = None
+    skip = None
     if empty_space_skip or occupancy is not None:
         if occupancy is None:
             occupancy = compute_occupancy(model, voxel_grid, occupancy_resolution, occupancy_threshold)
-        occ_mask, outside = occupancy if isinstance(occupancy, tuple) else (occupancy, False)
+        skip = occupancy if isinstance(occupancy, tuple) else (occupancy, False)
+    rays = pack_rays(bundle)
+    if dev.type == "cuda" and n_rays > step:
+        graphs = _ChunkGraphs.of(model, dev)
+        scene = graphs.load_scene(voxel_grid, skip)
+        path = "chunks_graphed"
 
-        def tighten(chunk):
-            return tighten_ray_bundle(chunk, occ_mask, model.volume_extent, n_probe=occupancy_probes,
-                                      outside_occupied=outside)
-    chunk_renderer = make_chunk_render_fn(model)
-    parts = {"images_render": [], "depths_render": [], "masks_render": [], "normals_render": []}
+        def render(chunk):
+            return graphs.replay(model, scene, chunk, occupancy_probes)
+    else:
+        path = "chunks_eager"
+
+        def render(chunk):
+            return render_packed(model, voxel_grid, chunk, skip, occupancy_probes)
+    frame = None
     for start in range(0, n_rays, step):
         with span("holo.chunk"):
-            chunk = bundle.slice_rays(slice(start, start + step))
-            if tighten is not None:
-                chunk = tighten(chunk)
-            out = chunk_renderer(voxel_grid, chunk)
-            parts["images_render"].append(out.features[0, :, :3])
-            parts["depths_render"].append(out.depths[0])
-            parts["masks_render"].append(out.masks[0])
-            if out.normals is not None:
-                parts["normals_render"].append(out.normals[0])
-    return {k: torch.cat(v, dim=0).reshape(H, W, -1) for k, v in parts.items() if v}
+            chunk = rays[start:start + step]
+            out = render(chunk)
+            if frame is None:
+                frame = out.new_empty((n_rays, out.shape[1]))
+            frame[start:start + chunk.shape[0]].copy_(out)
+            count(path, 1)
+    return unpack_frame(frame, H, W)
+
+
+def pack_rays(bundle: RayBundle) -> torch.Tensor:
+    """A one-camera bundle's rays as one (N, 8 + P) tensor: origins,
+    directions, lengths (P a ray), xys."""
+    return torch.cat([bundle.origins, bundle.directions, bundle.lengths, bundle.xys], dim=-1)[0]
+
+
+def unpack_rays(rays: torch.Tensor) -> RayBundle:
+    """`pack_rays`' inverse, as views of `rays`."""
+    return RayBundle(origins=rays[None, :, 0:3], directions=rays[None, :, 3:6], lengths=rays[None, :, 6:-2],
+                     xys=rays[None, :, -2:])
+
+
+def render_packed(model: HoloDiffusionModel, voxel_grid: torch.Tensor, rays: torch.Tensor,
+                  skip: Optional[Skip], n_probe: int) -> torch.Tensor:
+    """One chunk's render from packed rays (`pack_rays`), tightened by the
+    skip where there is one, through `make_chunk_render_fn` -> (N, 5) RGB,
+    depth, mask, or (N, 8) with the normals: what an eager chunk runs and
+    what a chunk's graph captures."""
+    bundle = unpack_rays(rays)
+    if skip is not None:
+        bundle = tighten_ray_bundle(bundle, skip[0], model.volume_extent, n_probe=n_probe, outside_occupied=skip[1])
+    out = make_chunk_render_fn(model)(voxel_grid, bundle)
+    parts = [out.features[0, :, :3], out.depths[0], out.masks[0]]
+    if out.normals is not None:
+        parts.append(out.normals[0])
+    return torch.cat(parts, dim=-1)
+
+
+def unpack_frame(frame: torch.Tensor, H: int, W: int) -> Dict[str, torch.Tensor]:
+    """A frame's packed (H * W, 5 or 8) rows (`render_packed`) -> the
+    (H, W, c) outputs of `render_image_chunked`, as views of `frame`."""
+    cols = {"images_render": (0, 3), "depths_render": (3, 4), "masks_render": (4, 5), "normals_render": (5, 8)}
+    return {k: frame[:, a:b].reshape(H, W, b - a) for k, (a, b) in cols.items() if b <= frame.shape[1]}
+
+
+# ---- the chunk loop's CUDA graphs
+
+def _graph_key(model: HoloDiffusionModel):
+    """What a chunk graph of `model` takes as fixed: the implicit function's
+    modes, the float32 matmul precision, and where each parameter and
+    buffer is stored (their values are read live at each replay)."""
+    f = model.implicit_function
+    return ((f.render_normals, f.sampler, f.collapse_density, f.fuse_decode, torch.get_float32_matmul_precision()),
+            tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers())))
+
+
+class _Scene:
+    """The static copies of a render's grid and skip that the graphs read."""
+
+    def __init__(self, key: tuple, voxel_grid: torch.Tensor, skip: Optional[Skip]):
+        self.key = key
+        self.grid = torch.empty(voxel_grid.shape, dtype=voxel_grid.dtype, device=voxel_grid.device)
+        self.skip = None
+        if skip is not None:
+            self.skip = (torch.empty_like(skip[0]), torch.empty((), dtype=torch.bool, device=voxel_grid.device))
+
+    def load(self, voxel_grid: torch.Tensor, skip: Optional[Skip]) -> "_Scene":
+        self.grid.copy_(voxel_grid)
+        if skip is not None:
+            self.skip[0].copy_(skip[0])
+            self.skip[1].copy_(torch.as_tensor(skip[1]))
+        return self
+
+
+class _ChunkGraphs:
+    """One model's chunk graphs on one device: a memory pool and a side
+    stream shared by its captures, the static scenes by grid and occupancy
+    shape, and the graphs by scene, probes and chunk shape, each with its
+    static rays and its static output."""
+
+    _of = weakref.WeakKeyDictionary()  # model -> {device: _ChunkGraphs}
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(dev)
+        self.key = None
+        self.scenes: Dict[tuple, _Scene] = {}
+        self.graphs: Dict[tuple, tuple] = {}
+
+    @classmethod
+    def of(cls, model: HoloDiffusionModel, dev: torch.device) -> "_ChunkGraphs":
+        """The model's graphs on `dev`, emptied where `_graph_key` changed."""
+        per_device = cls._of.setdefault(model, {})
+        graphs = per_device.get(dev)
+        if graphs is None:
+            graphs = per_device[dev] = cls(dev)
+        key = _graph_key(model)
+        if key != graphs.key:
+            graphs.key, graphs.scenes, graphs.graphs = key, {}, {}
+        return graphs
+
+    def load_scene(self, voxel_grid: torch.Tensor, skip: Optional[Skip]) -> _Scene:
+        key = (tuple(voxel_grid.shape), None if skip is None else tuple(skip[0].shape))
+        if key not in self.scenes:
+            self.scenes[key] = _Scene(key, voxel_grid, skip)
+        return self.scenes[key].load(voxel_grid, skip)
+
+    def replay(self, model, scene: _Scene, rays: torch.Tensor, n_probe: int) -> torch.Tensor:
+        """Render the chunk `rays` through its graph, captured on first use;
+        returns the graph's static output, valid until the next replay."""
+        key = (scene.key, n_probe, tuple(rays.shape))
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(model, scene, rays, n_probe)
+        graph, static_rays, static_out = self.graphs[key]
+        static_rays.copy_(rays)
+        graph.replay()
+        return static_out
+
+    def _capture(self, model, scene: _Scene, rays: torch.Tensor, n_probe: int):
+        """Warm up on the side stream (kernels loaded, shared memory set,
+        cuBLAS's workspace made), then capture on it into the pool."""
+        count("chunk_graph_captures", 1)
+        static_rays = rays.clone()
+        current = torch.cuda.current_stream(self.dev)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            render_packed(model, scene.grid, static_rays, scene.skip, n_probe)
+        current.wait_stream(self.stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
+            static_out = render_packed(model, scene.grid, static_rays, scene.skip, n_probe)
+        return graph, static_rays, static_out
 
 
 @torch.no_grad()

@@ -209,3 +209,42 @@ def test_chip_smoke_device_rows_leave_out_the_spans_device_mirrors():
             row("Memset (Device)", DeviceType.CUDA, False)]
     prof = types.SimpleNamespace(key_averages=lambda: rows)
     assert [e.key for e in chip_smoke.device_rows(prof)] == ["fused_decode_kernel", "Memset (Device)"]
+
+
+def _chip_smoke():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def test_chip_smoke_counts_kernels_by_their_traced_names():
+    """`chip_smoke.py` counts a graphed path's launches by the names a
+    device trace gives the kernels: each of csrc/ as the entry point that
+    launches it, with its channel count where the name holds it; other
+    device work is not counted."""
+    names = ["void (anonymous namespace)::fused_decode_kernel<64, true>((anonymous namespace)::Params)"] * 3 + [
+        "void (anonymous namespace)::fused_decode_kernel<32, false>((anonymous namespace)::Params)",
+        "void (anonymous namespace)::fused_decode_bwd_kernel<64>((anonymous namespace)::Params)",
+        "void (anonymous namespace)::decode_c128_fwd_kernel<true>((anonymous namespace)::FwdParams)",
+        "(anonymous namespace)::decode_c128_bwd_kernel((anonymous namespace)::BwdParams)",
+        "void kron_sample_fwd_kernel<1, 2>(float const*, float const*, float*, sample_gather::Geometry)",
+        "void trilinear_sample_onehot_kernel<4, 1>(float const*, float const*, float*, sample_gather::Geometry)",
+        "void view_sample_bwd_kernel(Table, Points, float const*)",
+        "Memcpy DtoD (Device -> Device)",
+        "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>(int, float*)",
+    ]
+    assert _chip_smoke().kernel_launch_counts(names) == {
+        "fused_decode_fwd_normals": 4, "fused_decode_fwd_normals@C64": 3, "fused_decode_fwd_normals@C128": 1,
+        "fused_decode_fwd": 1, "fused_decode_fwd@C32": 1, "fused_decode_bwd": 2, "fused_decode_bwd@C64": 1,
+        "fused_decode_bwd@C128": 1, "kron_sample_fwd": 1, "trilinear_sample_onehot": 1, "view_sample_bwd": 1}
+
+
+def test_chip_smoke_refuses_a_kernel_it_cannot_name():
+    """A kernel of csrc/ that no pattern names fails the count rather than
+    going uncounted."""
+    with pytest.raises(AssertionError, match="fused_decode_split_kernel"):
+        _chip_smoke().kernel_launch_counts(["void fused_decode_split_kernel<64>(Params)"])
