@@ -181,6 +181,8 @@ import sys
 import time
 import zlib
 
+from benchmark.counts.decode import decode_bwd_cost, decode_cost
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 CUDA-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -290,40 +292,6 @@ def cuda_time_ms(fn, iters=20):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
-
-
-def decode_cost(n_points, n_rays, grid_shape, hidden, pe_dim, normals):
-    """(bytes, flops) the fused decode must move and do: each input read
-    once, each output written once; per point the trilinear sample, the
-    collapsed density affine and the radiance layer."""
-    D, H, W, C = grid_shape
-    j = hidden + 1
-    lanes = 7 if normals else 4
-    n_bytes = 4 * (
-        n_points * 3 + n_rays * pe_dim + D * H * W * C + C * j + j
-        + (hidden + pe_dim) * 3 + 3 + (D * H * W if normals else 0)
-        + n_points * lanes
-    )
-    per_point = 2 * 8 * C + 2 * C * j + 2 * (hidden + pe_dim) * 3 + (2 * 8 * 3 if normals else 0)
-    return n_bytes, n_points * per_point
-
-
-def decode_bwd_cost(n_points, n_rays, grid_shape, hidden, pe_dim):
-    """(bytes, flops, bytes with the grid scatter's read-modify-writes) of
-    the decode backward. Bytes: each input read once (points, per-ray
-    directions, the (n, 4) cotangent, grid and weights), each cotangent
-    written once. FLOPs per point: the recomputed forward (sample, affine,
-    radiance layer), then dWr, d_rin, dA, d_s and the 8-corner scatter.
-    The third figure adds 8 corners x C read-modify-writes of d_grid per
-    point, which the scatter makes (in L2 on the H100)."""
-    D, H, W, C = grid_shape
-    j = hidden + 1
-    n_in = n_points * (3 + 4) + n_rays * pe_dim + D * H * W * C + C * j + j + (hidden + pe_dim) * 3 + 3
-    n_out = D * H * W * C + C * j + j + (hidden + pe_dim) * 3 + 3
-    fwd = 2 * 8 * C + 2 * C * j + 2 * (hidden + pe_dim) * 3
-    bwd = 2 * (hidden + pe_dim) * 3 + 2 * 3 * hidden + 2 * C * j + 2 * C * j + 2 * 8 * C
-    n_bytes = 4 * (n_in + n_out)
-    return n_bytes, n_points * (fwd + bwd), n_bytes + 4 * 2 * 8 * C * n_points
 
 
 def device_rows(prof):
@@ -1037,75 +1005,14 @@ def unfused_models(model, build_model, dev):
     return out
 
 
-def launch_counts_all():
-    from holo_diffusion_torch.ops import fused_decode as fd
-    from holo_diffusion_torch.ops import fused_render as fr
-    from holo_diffusion_torch.ops import kron_sample as ks
-    from holo_diffusion_torch.ops import view_sample as vs
-
-    return {**fd.launch_counts(), **fd.launch_counts_by_channels(), **ks.launch_counts(),
-            **ks.launch_counts_by_channels(), **fr.launch_counts(), **vs.launch_counts()}
-
-
-def reset_launch_counts_all():
-    from holo_diffusion_torch.ops import fused_decode as fd
-    from holo_diffusion_torch.ops import fused_render as fr
-    from holo_diffusion_torch.ops import kron_sample as ks
-    from holo_diffusion_torch.ops import view_sample as vs
-
-    for mod in (fd, ks, fr, vs):
-        mod.reset_launch_counts()
-
-
-# the hand-written kernels (csrc/) by the names a device trace gives them:
-# the entry point that launches each, and its channel count where the name
-# holds it (group C) or where the kernel has one alone
-TRACED_KERNELS = (
-    (r"fused_decode_kernel<(?P<C>\d+), ?true>", "fused_decode_fwd_normals", None),
-    (r"fused_decode_kernel<(?P<C>\d+), ?false>", "fused_decode_fwd", None),
-    (r"fused_decode_bwd_kernel<(?P<C>\d+)>", "fused_decode_bwd", None),
-    (r"decode_c128_fwd_kernel<true>", "fused_decode_fwd_normals", 128),
-    (r"decode_c128_fwd_kernel<false>", "fused_decode_fwd", 128),
-    (r"decode_c128_bwd_kernel", "fused_decode_bwd", 128),
-    (r"kron_sample_fwd_kernel", "kron_sample_fwd", None),
-    (r"kron_sample_dgrid_kernel", "kron_sample_dgrid", None),
-    (r"kron_sample_dpoints_kernel", "kron_sample_dpoints", None),
-    (r"trilinear_sample_onehot_kernel", "trilinear_sample_onehot", None),
-    (r"view_sample_fwd_kernel", "view_sample_fwd", None),
-    (r"view_sample_bwd_kernel", "view_sample_bwd", None),
-)
-TRACED_KERNEL_PARTS = ("fused_decode", "decode_c128", "kron_sample", "trilinear_sample", "view_sample")
-
-
-def kernel_launch_counts(names):
-    """{entry point: launches} of the device kernels named `names` (and
-    "<entry point>@C<C>" where `TRACED_KERNELS` knows the channel count);
-    raises on a kernel of csrc/ that no pattern names."""
-    import re
-
-    counts = {}
-    for name in names:
-        for pattern, entry, C in TRACED_KERNELS:
-            found = re.search(pattern, name)
-            if found:
-                C = found.groupdict().get("C") or C
-                for key in (entry, f"{entry}@C{C}") if C else (entry,):
-                    counts[key] = counts.get(key, 0) + 1
-                break
-        else:
-            if any(part in name for part in TRACED_KERNEL_PARTS):
-                raise AssertionError(f"device kernel {name!r} matches no entry of TRACED_KERNELS")
-    return counts
-
-
 class traced_launches:
     """The hand-written kernels the device runs from here to `counts()`,
-    counted by name (`kernel_launch_counts`) in a torch.profiler trace of
-    the device alone, with the program's chunk counters over the same
-    window (`chunk_graph_captures`, `chunks_graphed`, `chunks_eager`). A
-    chunk graph's replay (render_eval.py) launches its kernels without a
-    call into their wrappers, so the wrappers' counters
-    (`launch_counts_all`) count a graphed frame's warm-ups and not its
+    counted by name (`_build.traced_launch_counts`) in a torch.profiler
+    trace of the device alone, with the program's chunk counters over the
+    same window (`chunk_graph_captures`, `chunks_graphed`, `chunks_eager`).
+    A chunk graph's replay (render_eval.py) launches its kernels without a
+    call into their wrappers, so the host's launch counters
+    (`_build.launch_counts`) count a graphed frame's warm-ups and not its
     chunks; the trace counts every launch, the warm-ups' too
     (`graph_warmup_launches`). Wall times taken inside include the trace's
     cost."""
@@ -1122,13 +1029,14 @@ class traced_launches:
     def counts(self):
         import torch
 
+        from holo_diffusion_torch.ops import _build
         from holo_diffusion_torch.utils.profiling import counters
 
         torch.cuda.synchronize()
         chunks = {k: n for k, n in counters().items() if k.startswith("chunk")}
         self.prof.stop()
-        return {**kernel_launch_counts(e.name() for e in self.prof.profiler.kineto_results.events()
-                                       if "CUDA" in str(e.device_type())), **chunks}
+        return {**_build.traced_launch_counts(e.name() for e in self.prof.profiler.kineto_results.events()
+                                              if "CUDA" in str(e.device_type())), **chunks}
 
 
 def graph_warmup_launches(counts, passes=2):
@@ -1302,6 +1210,7 @@ def train_phase(model, cfg, batch, dev, label, steps):
     import torch
 
     from holo_diffusion_torch.config import optimizer_args_from_config
+    from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.parallel.train_step import TrainState, make_train_step
     from holo_diffusion_torch.train.optimizer import make_lr_schedule, make_optimizer
 
@@ -1320,7 +1229,7 @@ def train_phase(model, cfg, batch, dev, label, steps):
     warm_s = time.perf_counter() - t0
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    reset_launch_counts_all()
+    _build.reset_launch_counts()
     secs, objectives = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -1328,7 +1237,7 @@ def train_phase(model, cfg, batch, dev, label, steps):
         state, metrics = step(state, batch, gen)
         objectives.append(metrics["objective"].item())
         secs.append(time.perf_counter() - t0)
-    counts = launch_counts_all()
+    counts = _build.launch_counts()
     changed = {n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])}
     modules = {n.split(".")[0] for n, _ in model.named_parameters()}
     emit({"phase": "train", "variant": label, "frames": batch.image_rgb.shape[0],
@@ -1421,6 +1330,7 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=
     from holo_diffusion_torch.data.synthetic import make_synthetic_scene
     from holo_diffusion_torch.models import diffusion as gd
     from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
+    from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.parallel.train_step import TrainState, make_train_step
     from holo_diffusion_torch.render_eval import render_image_chunked
     from holo_diffusion_torch.train.optimizer import make_optimizer
@@ -1443,7 +1353,7 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=
         hist = warm_loss_history(cpu_model.schedule.num_timesteps)
         before = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
     objs, states = {}, {}
-    reset_launch_counts_all()
+    _build.reset_launch_counts()
     for label, m, b in (("card", card_model, scene.to(dev)), ("cpu", cpu_model, scene)):
         if loss_aware_ema:
             d = next(m.parameters()).device
@@ -1499,7 +1409,7 @@ def train_check_phase(dev, variant, feature_size=32, scene=None, loss_aware_ema=
         frame = render_image_chunked(card_model.eval(), cam, grid.to(dev), device=dev, image_height=24,
                                      image_width=24)
         want = render_image_chunked(cpu_model.eval(), cam, grid, device="cpu", image_height=24, image_width=24)
-    counts = launch_counts_all()
+    counts = _build.launch_counts()
     render_err = {k: float((frame[k].cpu() - want[k]).abs().max()) for k in want}
     finite = all(bool(torch.isfinite(x).all()) for x in frame.values())
     emit({"phase": "check", "variant": variant, "channels": feature_size, "card_launches": counts,
@@ -2166,6 +2076,7 @@ def flyaround_full_phase(here, dev, results):
     from holo_diffusion_torch import cli
     from holo_diffusion_torch.config import load_config
     from holo_diffusion_torch.experiment import Experiment
+    from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.ops import fused_render as fr
     from holo_diffusion_torch.ops import kron_sample as ks
     from holo_diffusion_torch.ops.occupancy import tighten_ray_bundle
@@ -2255,12 +2166,12 @@ def flyaround_full_phase(here, dev, results):
                                         "stratified_point_sampling_evaluation=true"], render_size=(size, size))
     strat.load_state_dict(model.state_dict())
     strat.to(dev).eval()
-    reset_launch_counts_all()
+    _build.reset_launch_counts()
     with torch.no_grad():
         gen = torch.Generator(device=dev).manual_seed(0)
         strat_out, strat_s = timed(lambda: strat(cams[0].to(dev), voxel_features=grid[None], draws=gen))
         plain_out = strat(cams[0].to(dev), voxel_features=grid[None])
-    strat_counts = launch_counts_all()
+    strat_counts = _build.launch_counts()
     strat_img = strat_out["images_render"][0]
     report["stratified_eval"] = {"s": strat_s, "psnr_vs_unstratified_db": psnr(strat_img.cpu(),
                                                                                plain_out["images_render"][0].cpu()),
@@ -2307,9 +2218,9 @@ def flyaround_full_phase(here, dev, results):
     cfg = load_config("unet_with_no_diffusion", [
         prov + f"dataset_root={root}", prov + "category=synthball", dl + "dataset_length_train=32",
         f"exp_dir={exp_dir}"])
-    reset_launch_counts_all()
+    _build.reset_launch_counts()
     (state, _), train_s = timed(lambda: Experiment(cfg).run(max_epochs=1))
-    train_counts = launch_counts_all()
+    train_counts = _build.launch_counts()
     emit({"phase": "main_path", "path": "reconstruction_train", "launches": train_counts})
     if state.step != 2:
         raise AssertionError(f"reconstruction training: {state.step} steps, expected 2")
@@ -2321,7 +2232,7 @@ def flyaround_full_phase(here, dev, results):
     rec_log.setLevel(logging.INFO)
     records = _Records()
     rec_log.addHandler(records)
-    reset_launch_counts_all()
+    _build.reset_launch_counts()
     runs = {}
     for label, extra, n_seq, n_poses, hw in (
             ("circular_lsq_fit", ["n_eval_sequences=2"], 2, poses, 256),
@@ -2349,7 +2260,7 @@ def flyaround_full_phase(here, dev, results):
                        "mask_mean": float(np.mean([f.mean() / 255 for f in frames[2 * n_poses:3 * n_poses]]))}
     rec_log.removeHandler(records)
     rec_log.setLevel(rec_level)
-    rec_counts = launch_counts_all()
+    rec_counts = _build.launch_counts()
     emit({"phase": "main_path", "path": "reconstruction", "launches": rec_counts})
     n_frames = sum(r["sequences"] * r["poses"] for r in runs.values())
     expect_launches(rec_counts, "reconstruction", exactly={"fused_decode_fwd": 2 * n_frames},
@@ -2422,6 +2333,7 @@ def quality_phase(here, dev, results):
     from holo_diffusion_torch.experiment import Experiment
     from holo_diffusion_torch.models.inception import FIDInceptionV3, random_inception
     from holo_diffusion_torch.models.lpips import load_lpips_model, make_lpips_fn, random_vgg_features
+    from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.ops import fused_render as fr
     from holo_diffusion_torch.ops import kron_sample as ks
     from holo_diffusion_torch.utils.vis import write_dashboard_html
@@ -2561,12 +2473,12 @@ def quality_phase(here, dev, results):
     for lg in loggers:
         lg.setLevel(logging.INFO)
         lg.addHandler(records)
-    reset_launch_counts_all()
+    _build.reset_launch_counts()
     with counted_chunk_graphs() as graphed:
         (state, stats), loop_s = timed(lambda: Experiment(cfg).run(max_epochs=1))
     for lg in loggers:
         lg.removeHandler(records)
-    counts = launch_counts_all()
+    counts = _build.launch_counts()
     emit({"phase": "main_path", "path": "vis_loop", "launches": counts, "chunk_graphs": graphed})
     model = state.model
     chunks = math.ceil(model.render_image_height * model.render_image_width
@@ -2653,6 +2565,7 @@ def scale_out_phase(here, dev, results):
     from holo_diffusion_torch.data.packing import BatchPacker, packed_transfer
     from holo_diffusion_torch.experiment import Experiment
     from holo_diffusion_torch.models import diffusion as gd
+    from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.ops import fused_render as fr
     from holo_diffusion_torch.ops import kron_sample as ks
     from holo_diffusion_torch.parallel.collectives import gathered_loss_aware_update, mean_over_ranks
@@ -2850,9 +2763,9 @@ def scale_out_phase(here, dev, results):
                     "plain_rerun_bitwise": rerun_same, "plain_rerun_max_abs_diff": rerun_diff}
 
         model = init_weights(build_hydrant(hcfg), seed=0)
-        reset_launch_counts_all()
+        _build.reset_launch_counts()
         fused = against_plain(model)
-        counts = launch_counts_all()
+        counts = _build.launch_counts()
         expect_launches(counts, "NCCL steps", exactly={"fused_decode_bwd": 18, "fused_decode_fwd_normals": 18})
         with deterministic():
             det_model = unfuse(init_weights(build_hydrant(load_config("hydrant", [f"{SAMPLER_KEY}=gather"])), seed=0))
@@ -3109,6 +3022,7 @@ def model_parallel_phase(here, dev, results):
     from holo_diffusion_torch.models.unet3d import UNetModel3D
     from holo_diffusion_torch.models.unet_gigagan import AsymmetricUNetModel
     from holo_diffusion_torch.models.unet_variants import EncoderUNetModel, SuperResModel
+    from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.ops import fused_decode as fd
     from holo_diffusion_torch.parallel import spatial
     from holo_diffusion_torch.parallel.mesh import make_mesh
@@ -3158,7 +3072,7 @@ def model_parallel_phase(here, dev, results):
         # ---- main path: the sharded 10-step loop, then the ray-sharded frame
         # (its two decode launches captured for the checks below)
         cam = simple_360_cameras(1, up=CANONICAL_CO3D_UP_AXIS)[0]
-        reset_launch_counts_all()
+        _build.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         grid = spatial.sample_random_voxel_features_sharded(model, torch.Generator(device=dev).manual_seed(1),
@@ -3168,7 +3082,7 @@ def model_parallel_phase(here, dev, results):
         with captured_decodes() as one:
             frame = render_image_sharded(model, cam, grid[0], mesh)
         torch.cuda.synchronize()
-        counts = launch_counts_all()
+        counts = _build.launch_counts()
         emit({"phase": "main_path", "path": "model_parallel", "launches": counts})
         expect_launches(counts, "model parallel", exactly={"fused_decode_fwd_normals": 2},
                         none=("fused_decode_fwd", "fused_decode_bwd", "kron_sample_fwd", "kron_sample_dgrid",

@@ -48,13 +48,7 @@ namespace {
 using tf32x3::mma;
 using tf32x3::split;
 
-// The channel count: 128. kernel_sweep.py's `design` section builds the
-// same design at 64 (-DDECODE_C128_CHANNELS=64) to time it against the C-64
-// kernels; the port builds and launches it at 128 alone.
-#ifndef DECODE_C128_CHANNELS
-#define DECODE_C128_CHANNELS 128
-#endif
-constexpr int C = DECODE_C128_CHANNELS;
+constexpr int C = 128;
 constexpr int kKSteps = C / 8;      // k-steps of the affine
 constexpr int kS = C + 4;           // an s or d_s row, padded by 4 floats
 constexpr int kUnits = 32;          // vector units of a grid cell: a warp's lanes

@@ -9,66 +9,27 @@ when it cannot; for CPU tensors it runs the plain PyTorch versions
 which are also what the card is checked against. When an input requires
 grad, the call goes through `FusedSampleDecode`, a `torch.autograd.Function`
 whose backward is the backward kernel (the `jax.custom_vjp` of the JAX
-package). Each entry point counts its launches
-(`launch_counts`/`reset_launch_counts`), and by channel count
-(`launch_counts_by_channels`). A call made while a CUDA graph captures
-(`render_eval.py`) counts nothing: its kernel launches at each replay,
-which a device trace sees and these counters do not.
+package). The kernels launch through `_build.launch`, which counts them by
+entry point and channel count.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import span
+from . import _build
 from .kron_sample import check_flat_index, kron_sample_dpoints_reference
 from .voxel import continuous_indices, sample_voxel_grid_world
 
 NEG_SLOPE = 0.2  # torch.nn.LeakyReLU(0.2)
 # dynamic shared memory one block may opt into on sm_90 (H100), in bytes
 SMEM_OPTIN_BYTES = 232_448
-ENTRY_POINTS = ("fused_decode_fwd", "fused_decode_fwd_normals", "fused_decode_bwd")
-# by channel count, each entry point's (library under csrc/, C function)
-_C64_FUNCTIONS = {"fused_decode_fwd": ("fused_decode", "fused_decode_fwd"),
-                  "fused_decode_fwd_normals": ("fused_decode", "fused_decode_fwd_normals"),
-                  "fused_decode_bwd": ("fused_decode_bwd", "fused_decode_bwd")}
-KERNEL_FUNCTIONS = {
-    32: _C64_FUNCTIONS,
-    64: _C64_FUNCTIONS,
-    128: {"fused_decode_fwd": ("fused_decode_c128", "decode_c128_fwd"),
-          "fused_decode_fwd_normals": ("fused_decode_c128", "decode_c128_fwd_normals"),
-          "fused_decode_bwd": ("fused_decode_c128", "decode_c128_bwd")},
-}
-SUPPORTED_CHANNELS = tuple(KERNEL_FUNCTIONS)  # the channel counts the CUDA sources are built for
-
-_launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
-# the same launches by channel count, keyed "<entry point>@C<C>"
-_launches_by_channels: Dict[str, int] = {}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
-
-
-def launch_counts_by_channels() -> Dict[str, int]:
-    return dict(_launches_by_channels)
-
-
-def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
-    _launches_by_channels.clear()
-
-
-def _count_launch(name: str, C: int) -> None:
-    if torch.cuda.is_current_stream_capturing():
-        return
-    _launches[name] += 1
-    key = f"{name}@C{C}"
-    _launches_by_channels[key] = _launches_by_channels.get(key, 0) + 1
+ENTRY_POINTS = tuple(e for e in _build.KERNELS if e.startswith("fused_decode"))
+# the channel counts the CUDA sources are built for (`_build.KERNELS`)
+SUPPORTED_CHANNELS = tuple(_build.KERNELS["fused_decode_fwd"].functions)
 
 
 def fwd_smem_bytes(C: int, hidden: int, pe_dim: int) -> int:
@@ -218,25 +179,6 @@ def fused_sample_decode_bwd_reference(
     return d_grid.reshape(grid.shape), dA, dc, dWr, dbr
 
 
-def _kernel_function(name: str, C: int):
-    """The C function that launches entry point `name` at C channels
-    (`KERNEL_FUNCTIONS`; the same arguments at every C)."""
-    from . import _build
-
-    lib, fn = KERNEL_FUNCTIONS[C][name]
-    f = getattr(_build.load(lib), fn)
-    if not getattr(f, "_argtypes_set", False):
-        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        dims = [i64, i32, i32, i32, i32, i32, i32, i32, i32]
-        if name == "fused_decode_bwd":
-            f.argtypes = [ptr] * 12 + dims + [f32, ptr]
-        else:
-            f.argtypes = [ptr] * (8 if name == "fused_decode_fwd" else 9) + dims + [f32, f32, ptr]
-        f.restype = i32
-        f._argtypes_set = True
-    return f
-
-
 def _kernel_operands(grid, A, c, Wr, br, points, pe_dirs, hidden, **extra):
     """Check what the kernels take and lay the operands out for them:
     contiguous float32 on the points' device, A and c zero-padded to a
@@ -290,21 +232,14 @@ def _fused_sample_decode_cuda(grid, A, c, Wr, br, points, pe_dirs, extent, hidde
     out = torch.empty((n, lanes), dtype=torch.float32, device=points.device)
     if n == 0:
         return _split_lanes(out.reshape(*points.shape[:-1], lanes))
-    C = dims[5]
-    name = "fused_decode_fwd" if g1 is None else "fused_decode_fwd_normals"
-    launch = _kernel_function(name, C)
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        head = [ops[k].data_ptr() for k in ("points", "pe", "grid", "A", "c", "Wr", "br")]
-        tail = dims + [float(extent) / D, D / float(extent), stream]
-        if g1 is None:
-            err = launch(*head, out.data_ptr(), *tail)
-        else:
-            g1_c = g1.contiguous()
-            err = launch(*head, g1_c.data_ptr(), out.data_ptr(), *tail)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    _count_launch(name, C)
+    head = [ops[k].data_ptr() for k in ("points", "pe", "grid", "A", "c", "Wr", "br")]
+    tail = dims + [float(extent) / D, D / float(extent)]
+    if g1 is None:
+        _build.launch("fused_decode_fwd", *head, out.data_ptr(), *tail, device=points.device, C=dims[5])
+    else:
+        g1_c = g1.contiguous()
+        _build.launch("fused_decode_fwd_normals", *head, g1_c.data_ptr(), out.data_ptr(), *tail,
+                      device=points.device, C=dims[5])
     return _split_lanes(out.reshape(*points.shape[:-1], lanes))
 
 
@@ -323,18 +258,12 @@ def _fused_sample_decode_bwd_cuda(grid, A, c, Wr, br, points, pe_dirs, extent, h
     dc = torch.zeros((j_pad,), dtype=torch.float32, device=dev)
     dWr = torch.zeros((hidden + pe_dim + 1, 3), dtype=torch.float32, device=dev)
     if n > 0:
-        launch = _kernel_function("fused_decode_bwd", C)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = launch(
-                ops["points"].data_ptr(), ops["pe"].data_ptr(), g4.data_ptr(),
-                *(ops[k].data_ptr() for k in ("grid", "A", "c", "Wr", "br")),
-                d_grid.data_ptr(), dA.data_ptr(), dc.data_ptr(), dWr.data_ptr(),
-                *dims, float(extent) / grid.shape[0], stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"fused_decode_bwd launch failed: cudaError {err}")
-        _count_launch("fused_decode_bwd", C)
+        _build.launch(
+            "fused_decode_bwd", ops["points"].data_ptr(), ops["pe"].data_ptr(), g4.data_ptr(),
+            *(ops[k].data_ptr() for k in ("grid", "A", "c", "Wr", "br")),
+            d_grid.data_ptr(), dA.data_ptr(), dc.data_ptr(), dWr.data_ptr(),
+            *dims, float(extent) / grid.shape[0], device=dev, C=C,
+        )
     n_out = hidden + 1
     return d_grid, dA[:, :n_out], dc[:n_out], dWr[:-1], dWr[-1]
 
@@ -346,22 +275,16 @@ def _split_lanes(out):
     return out[..., 0:1], out[..., 1:4], out[..., 4:7]
 
 
-def _device_checked(points: torch.Tensor) -> str:
-    if points.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"no fused_decode kernel for {points.device}")
-    return points.device.type
-
-
 def _forward(grid, A, c, Wr, br, points, pe_dirs, extent, hidden, g1):
     args = (grid, A, c, Wr, br, points, pe_dirs, extent, hidden, g1)
-    if _device_checked(points) == "cpu":
+    if _build.on_cpu(points):
         return fused_sample_decode_reference(*args)
     return _fused_sample_decode_cuda(*args)
 
 
 def _backward(grid, A, c, Wr, br, points, pe_dirs, extent, hidden, g):
     args = (grid, A, c, Wr, br, points, pe_dirs, extent, hidden, g)
-    if _device_checked(points) == "cpu":
+    if _build.on_cpu(points):
         return fused_sample_decode_bwd_reference(*args)
     return _fused_sample_decode_bwd_cuda(*args)
 
@@ -416,6 +339,6 @@ def fused_sample_decode(
     """
     args = (grid, A, c, Wr, br, points, pe_dirs, extent, hidden, g1)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (grid, A, c, Wr, br)):
-        _device_checked(points)
+        _build.on_cpu(points)
         return FusedSampleDecode.apply(*args)
     return _forward(*args)

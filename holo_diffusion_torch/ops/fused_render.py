@@ -13,44 +13,18 @@ PyTorch, as the JAX package keeps it in plain XLA.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict
-
 import torch
 
-from .kron_sample import check_flat_index, check_operands, on_cpu, sample_layout
+from . import _build
+from .kron_sample import check_flat_index, check_operands, sample_layout
 from .voxel import continuous_indices, sample_voxel_grid_world
 
-ENTRY_POINTS = ("trilinear_sample_onehot",)
-
-_launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
-
+ENTRY_POINTS = tuple(e for e in _build.KERNELS if e.startswith("trilinear_sample"))
 
 def trilinear_sample_onehot_reference(grid: torch.Tensor, points: torch.Tensor, extent: float) -> torch.Tensor:
     """Plain version of the kernel: floor/fraction weights, clipped cells, 0
     for a corner outside (the gather sampler's arithmetic)."""
     return sample_voxel_grid_world(grid, points, extent)
-
-
-def _library():
-    from . import _build
-
-    lib = _build.load("fused_render")
-    if not getattr(lib, "_argtypes_set", False):
-        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.trilinear_sample_onehot.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, f32, ptr]
-        lib.trilinear_sample_onehot.restype = i32
-        lib._argtypes_set = True
-    return lib
 
 
 def _sample_cuda(grid: torch.Tensor, points: torch.Tensor, extent: float) -> torch.Tensor:
@@ -61,15 +35,8 @@ def _sample_cuda(grid: torch.Tensor, points: torch.Tensor, extent: float) -> tor
     n = points.shape[0]
     out = torch.empty((n, C), dtype=torch.float32, device=points.device)
     if n > 0:
-        with torch.cuda.device(points.device):
-            stream = torch.cuda.current_stream(points.device).cuda_stream
-            err = _library().trilinear_sample_onehot(
-                points.data_ptr(), grid.data_ptr(), out.data_ptr(), n, D, H, W, C,
-                sample_layout(C)[0], float(extent) / D, stream)
-        if err != 0:
-            raise RuntimeError(f"trilinear_sample_onehot launch failed: cudaError {err}")
-        if not torch.cuda.is_current_stream_capturing():
-            _launches["trilinear_sample_onehot"] += 1
+        _build.launch("trilinear_sample_onehot", points.data_ptr(), grid.data_ptr(), out.data_ptr(), n, D, H, W, C,
+                      sample_layout(C)[0], float(extent) / D, device=points.device)
     return out
 
 
@@ -90,7 +57,7 @@ def trilinear_sample_pallas(
             "as the JAX function has no VJP); use sampler='fused' to differentiate")
     shape = points.shape[:-1]
     flat = points.reshape(-1, 3)
-    if on_cpu(flat):
+    if _build.on_cpu(flat):
         out = trilinear_sample_onehot_reference(grid, flat, extent)
     else:
         out = _sample_cuda(grid, flat, extent)

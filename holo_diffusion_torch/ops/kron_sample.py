@@ -13,9 +13,8 @@ tensors they run the plain version. `KronSample` joins them as a
 `torch.autograd.Function` (the JAX package's `jax.custom_vjp`): its backward
 launches the grid kernel only when the grid needs a gradient and the points
 kernel only when the points do, as XLA drops the unused d_points call in
-the JAX package. Each entry point counts its launches
-(`launch_counts`/`reset_launch_counts`), but not a call made while a CUDA
-graph captures, whose kernel launches at the graph's replays.
+the JAX package. The kernels launch through `_build.launch`, which counts
+them by entry point and channel count.
 
 The TPU computes the sample as a Kronecker-factored matrix product; on the
 H100 the grid stays in L2 and each kernel gathers (or scatters into) the 8
@@ -25,12 +24,12 @@ package's `precision="highest"` result.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import _build
 from .voxel import hat_corners
 
 # largest D*H*W*C for which the implicit function picks this sampler (and
@@ -40,25 +39,7 @@ from .voxel import hat_corners
 DEFAULT_MAX_GC = 16 ** 3 * 64
 # largest D*H*W*C that these kernels and the fused decode index with 32-bit offsets
 KERNEL_MAX_GC = 2 ** 31 - 1
-ENTRY_POINTS = ("kron_sample_fwd", "kron_sample_dgrid", "kron_sample_dpoints")
-
-_launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
-# the same launches by channel count, keyed "<entry point>@C<C>"
-_launches_by_channels: Dict[str, int] = {}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
-
-
-def launch_counts_by_channels() -> Dict[str, int]:
-    return dict(_launches_by_channels)
-
-
-def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
-    _launches_by_channels.clear()
+ENTRY_POINTS = tuple(e for e in _build.KERNELS if e.startswith("kron_sample"))
 
 
 # ---- plain versions
@@ -190,37 +171,11 @@ def check_operands(points: torch.Tensor, C: int, grid=None, g=None) -> None:
         raise ValueError(f"cotangent {tuple(g.shape)} must be ({points.shape[0]}, {C})")
 
 
-def _library():
-    from . import _build
-
-    lib = _build.load("kron_sample")
-    if not getattr(lib, "_argtypes_set", False):
-        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        geom = [i64, i32, i32, i32, i32, i32, f32]  # n, D, H, W, C, group_log2, voxel_size
-        lib.kron_sample_fwd.argtypes = [ptr, ptr, ptr] + geom + [ptr]
-        # K5 takes log2 of its run in group_log2's place, then log2 of its tile
-        lib.kron_sample_dgrid.argtypes = [ptr, ptr, ptr] + geom + [i32, ptr]
-        lib.kron_sample_dpoints.argtypes = [ptr, ptr, ptr, ptr] + geom + [f32, ptr]
-        for name in ENTRY_POINTS:
-            getattr(lib, name).restype = i32
-        lib._argtypes_set = True
-    return lib
-
-
 def _launch(name: str, pointers, grid_shape, n: int, extent: float, *tail, device, layout_log2: int):
     """Launch entry point `name`; `layout_log2` is log2 of the lanes per
     point (K4, K6) or of K5's run."""
     D, H, W, C = grid_shape
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_library(), name)(
-            *pointers, n, D, H, W, C, layout_log2, float(extent) / D, *tail, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    if not torch.cuda.is_current_stream_capturing():
-        _launches[name] += 1
-        key = f"{name}@C{C}"
-        _launches_by_channels[key] = _launches_by_channels.get(key, 0) + 1
+    _build.launch(name, *pointers, n, D, H, W, C, layout_log2, float(extent) / D, *tail, device=device, C=C)
 
 
 def _fwd_cuda(grid, points, extent):
@@ -263,17 +218,9 @@ def _dpoints_cuda(grid, points, g, extent):
     return out
 
 
-def on_cpu(points: torch.Tensor) -> bool:
-    """True for CPU tensors (the plain versions), False for CUDA ones (the
-    kernels); raises for any other device."""
-    if points.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"no sampling kernel for {points.device}")
-    return points.device.type == "cpu"
-
-
 def kron_sample_fwd(grid: torch.Tensor, points: torch.Tensor, extent: float) -> torch.Tensor:
     """K4: grid (D, H, W, C), points (N, 3) -> (N, C)."""
-    if on_cpu(points):
+    if _build.on_cpu(points):
         return kron_sample_fwd_reference(grid, points, extent)
     return _fwd_cuda(grid, points, extent)
 
@@ -281,7 +228,7 @@ def kron_sample_fwd(grid: torch.Tensor, points: torch.Tensor, extent: float) -> 
 def kron_sample_dgrid(points: torch.Tensor, g: torch.Tensor, grid_shape, extent: float) -> torch.Tensor:
     """K5: the grid cotangent (D, H, W, C) from g (N, C). The kernel sums
     with float atomics, so its result is not bit-reproducible."""
-    if on_cpu(points):
+    if _build.on_cpu(points):
         return kron_sample_dgrid_reference(points, g, grid_shape, extent)
     return _dgrid_cuda(points, g, grid_shape, extent)
 
@@ -290,7 +237,7 @@ def kron_sample_dpoints(
     grid: torch.Tensor, points: torch.Tensor, g: Optional[torch.Tensor], extent: float
 ) -> torch.Tensor:
     """K6: the points cotangent (N, 3) from g (N, C), or from all ones."""
-    if on_cpu(points):
+    if _build.on_cpu(points):
         return kron_sample_dpoints_reference(grid, points, g, extent)
     return _dpoints_cuda(grid, points, g, extent)
 

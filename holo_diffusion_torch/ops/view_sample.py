@@ -9,33 +9,22 @@ runs the plain version `view_sample_reference`, one `bilinear_sample_ndc`
 call a view and a map, which is also what the card is checked against.
 When a map requires grad, the call goes through `ViewSample`, a
 `torch.autograd.Function` whose backward is the backward kernel. No TPU
-kernel is replaced: the JAX package leaves this sampling to XLA. Each entry
-point counts its launches (`launch_counts`/`reset_launch_counts`).
+kernel is replaced: the JAX package leaves this sampling to XLA. The
+kernels launch through `_build.launch`, which counts them.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+from typing import List, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.profiling import span
+from . import _build
 from .image import bilinear_sample_ndc
 
 MAX_MAPS = 8  # the kernel's table of maps (`kMaxMaps`)
-ENTRY_POINTS = ("view_sample_fwd", "view_sample_bwd")
-
-_launches: Dict[str, int] = {name: 0 for name in ENTRY_POINTS}
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
 
 
 def view_sample_reference(maps: Sequence[torch.Tensor], xy: torch.Tensor,
@@ -72,20 +61,6 @@ def check_operands(maps: Sequence[torch.Tensor], xy: torch.Tensor) -> List[int]:
     return offsets
 
 
-def _library():
-    from . import _build
-
-    lib = _build.load("view_sample")
-    if not getattr(lib, "_argtypes_set", False):
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        args = [ctypes.POINTER(i64), i32, ptr, i64, i64, i64, i64, i64, i32, ptr, i64, i64, ptr]
-        for name in ENTRY_POINTS:
-            getattr(lib, name).argtypes = args
-            getattr(lib, name).restype = i32
-        lib._argtypes_set = True
-    return lib
-
-
 def _launch(name, maps, grads, offsets, xy, align_corners, rows):
     """One launch of `name` over the maps (and, backward, their gradient
     buffers), rows being out or grad_out (S, N, F) with channel stride 1."""
@@ -95,13 +70,8 @@ def _launch(name, maps, grads, offsets, xy, align_corners, rows):
                   *m.shape[1:], off, *m.stride(), *(m.stride() if g is None else g.stride())]
     desc = (ctypes.c_longlong * len(words))(*words)
     S, N = xy.shape[:2]
-    with torch.cuda.device(xy.device):
-        stream = torch.cuda.current_stream(xy.device).cuda_stream
-        err = getattr(_library(), name)(desc, len(maps), xy.data_ptr(), *xy.stride(), S, N, int(align_corners),
-                                        rows.data_ptr(), *rows.stride()[:2], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    _launches[name] += 1
+    _build.launch(name, desc, len(maps), xy.data_ptr(), *xy.stride(), S, N, int(align_corners),
+                  rows.data_ptr(), *rows.stride()[:2], device=xy.device)
 
 
 def _fwd_cuda(maps, xy, align_corners, offsets):
@@ -161,10 +131,8 @@ def view_sample(maps: Sequence[torch.Tensor], xy: torch.Tensor, align_corners: b
     of each map at xy[s]. Returns (S, N, sum c), the maps side by side in
     the given order. Differentiable in the maps, not in xy. CUDA tensors
     launch the kernels (or raise); CPU tensors take the plain version."""
-    if xy.device.type == "cpu":
+    if _build.on_cpu(xy):
         return view_sample_reference(maps, xy, align_corners)
-    if xy.device.type != "cuda":
-        raise NotImplementedError(f"no view_sample kernel for {xy.device}")
     offsets = check_operands(maps, xy)
     if torch.is_grad_enabled() and any(m.requires_grad for m in maps):
         return ViewSample.apply(xy, align_corners, offsets, *maps)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Layout, locality and cost-split sweeps of the port's kernels on one GPU.
 
-    python3 kernel_sweep.py [--only k4,k2,k6,decode,k5,k7,samplers,design]
+    python3 kernel_sweep.py [--only k4,k2,k6,decode,k5,k7,samplers]
 
 Each section runs in a process of its own.
 
@@ -36,15 +36,6 @@ Prints one JSON line per measurement, then the card's name and power limit:
           `trilinear_sample_pallas`) on both point sets at those shapes:
           the section to run in a copy of an earlier version of the port,
           beside this one, to time two designs in one call
-  design  the C-128 kernels' design (`csrc/fused_decode_c128.cu`: A staged
-          unsplit and split as loaded, 8 forward warps) built at C 64
-          (-DDECODE_C128_CHANNELS=64) against the C-64 kernels at hydrant's
-          shapes (16^3 x 64, hidden 256): K1 and K3 at both render chunks
-          and K3 at a training fine pass, on ray-ordered points; K2 at the
-          fine pass on random and ray-ordered points with a slope-safe
-          cotangent (`chip_smoke.slope_safe_cotangent`), within
-          `chip_smoke.KERNEL_BWD_SLOPE_SAFE_TOL`; both designs timed twice,
-          in the order C-64, design, design, C-64
 Each result is checked against the plain version (K4 and K7 1e-4
 absolute, K5 and K6 1e-4 of their scale, K1/K3 1e-4 absolute, K2 1e-3 of
 each cotangent's scale, as `chip_smoke.py`) after its line is printed;
@@ -52,26 +43,10 @@ device time per launch from torch.profiler
 (`chip_smoke.device_ms_per_launch`). Needs a CUDA device.
 """
 import argparse
-import ctypes
 import subprocess
 import sys
 
 SOURCES = ["kron_sample", "fused_decode", "fused_decode_bwd", "fused_render"]
-
-
-def build_c128_design_at_64():
-    """`csrc/fused_decode_c128.cu` built at 64 channels
-    (-DDECODE_C128_CHANNELS=64), with the port's nvcc flags, into the port's
-    build directory; returns the library's path."""
-    from holo_diffusion_torch.ops import _build
-
-    out = _build.BUILD_DIR / "libfused_decode_c128_at64.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-DDECODE_C128_CHANNELS=64", "-o", str(out),
-                           str(_build.CSRC_DIR / "fused_decode_c128.cu")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("the C-128 design at C 64 did not build:\n" + proc.stdout + proc.stderr)
-    return out
 
 
 def main():
@@ -81,7 +56,7 @@ def main():
         print("kernel_sweep.py: no CUDA device", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser()
-    parser.add_argument("--only", default="k4,k2,k6,decode,k5,k7,samplers,design")
+    parser.add_argument("--only", default="k4,k2,k6,decode,k5,k7,samplers")
     opts = parser.parse_args()
     sections = opts.only.split(",")
     if len(sections) > 1:
@@ -96,8 +71,8 @@ def main():
                 return rc
         return 0
     only = set(sections)
-    from chip_smoke import (KERNEL_BWD_SLOPE_SAFE_TOL, KERNEL_BWD_TOL, KERNEL_TOL, SAMPLE_COT_TOL, SAMPLE_TOL,
-                            decode_bwd_errors, device_ms_per_launch, emit, ray_ordered_points, slope_safe_cotangent)
+    from chip_smoke import (KERNEL_BWD_TOL, KERNEL_TOL, SAMPLE_COT_TOL, SAMPLE_TOL, decode_bwd_errors,
+                            device_ms_per_launch, emit, ray_ordered_points)
     from holo_diffusion_torch.device import set_full_precision
     from holo_diffusion_torch.ops import _build
     from holo_diffusion_torch.ops import fused_decode as fd
@@ -262,72 +237,15 @@ def main():
                 ms = device_ms_per_launch(call, "trilinear_sample_onehot_kernel")
                 check_sample(label, pts, call(), want, sweep="samplers", kernel="trilinear_sample_onehot", ms=ms)
             if "k7" in only:
-                lib = fr._library()
                 for lanes_log2 in range(0, 6):
                     def call():
                         out = torch.empty((pts.shape[0], C), device=dev)
-                        err = lib.trilinear_sample_onehot(
-                            pts.data_ptr(), grid.data_ptr(), out.data_ptr(), pts.shape[0], D, D, D, C, lanes_log2,
-                            extent / D, torch.cuda.current_stream(dev).cuda_stream)
-                        assert err == 0, err
+                        _build.launch("trilinear_sample_onehot", pts.data_ptr(), grid.data_ptr(), out.data_ptr(),
+                                      pts.shape[0], D, D, D, C, lanes_log2, extent / D, device=dev)
                         return out
                     ms = device_ms_per_launch(call, "trilinear_sample_onehot_kernel")
                     check_sample(label, pts, call(), want, sweep="k7", lanes=1 << lanes_log2,
                                  port_layout=lanes_log2 == ks.sample_layout(C)[0], ms=ms)
-
-    # ---- the C-128 design at C 64 against the C-64 kernels
-    if "design" in only:
-        _build._loaded["fused_decode_c128_at64"] = ctypes.CDLL(str(build_c128_design_at_64()))
-        designs = {"c64_kernels": (dict(fd.KERNEL_FUNCTIONS[64]), "fused_decode_kernel", "fused_decode_bwd_kernel"),
-                   "c128_design": ({k: ("fused_decode_c128_at64", fn) for k, (_, fn) in fd.KERNEL_FUNCTIONS[128].items()},
-                                   "decode_c128_fwd_kernel", "decode_c128_bwd_kernel")}
-        order = ("c64_kernels", "c128_design", "c128_design", "c64_kernels")
-        gen9 = torch.Generator(device=dev).manual_seed(9)
-        A = torch.randn((C, hidden + 1), generator=gen9, device=dev) / C ** 0.5
-        c = 0.1 * torch.randn((hidden + 1,), generator=gen9, device=dev)
-        Wr = torch.randn((hidden + 27, 3), generator=gen9, device=dev) / (hidden + 27) ** 0.5
-        br = 0.1 * torch.randn((3,), generator=gen9, device=dev)
-        g1 = torch.einsum("dhwc,c->dhw", grid, A[:, -1])
-        fwd_cases = [("coarse_chunk", 640, 64, (False, True)), ("fine_chunk", 640, 128, (False, True)),
-                     ("train_fine", 3 * 1024, 128, (True,))]
-        for case, R, P, variants in fwd_cases:
-            pts = ray_ordered_points(gen9, R, P, extent)
-            pe = torch.randn((R, 27), generator=gen9, device=dev)
-            args = (grid, A, c, Wr, br, pts, pe, extent, hidden)
-            for normals in variants:
-                kw = {"g1": g1} if normals else {}
-                with torch.no_grad():
-                    want = fd.fused_sample_decode_reference(*args, **kw)
-                    for design in order:
-                        funcs, fwd_name, _ = designs[design]
-                        fd.KERNEL_FUNCTIONS[64] = funcs
-                        err = max(float((a - b).abs().max()) for a, b in zip(fd.fused_sample_decode(*args, **kw), want))
-                        ms = device_ms_per_launch(lambda: fd.fused_sample_decode(*args, **kw), fwd_name)
-                        emit({"sweep": "design", "design": design, "kernel": fd.ENTRY_POINTS[int(normals)],
-                              "points": case, "n": R * P, "ms": ms, "max_abs_err": err, "tol": KERNEL_TOL})
-                        if not err <= KERNEL_TOL:
-                            raise AssertionError(f"{design} {fd.ENTRY_POINTS[int(normals)]} ({case}): {err}")
-        R, P = 3 * 1024, 128
-        pe = torch.randn((R, 27), generator=gen9, device=dev)
-        g = torch.randn((R, P, 4), generator=gen9, device=dev)
-        point_sets = {"random": (torch.rand((R, P, 3), generator=gen9, device=dev) * 2 - 1) * 0.6 * extent,
-                      "ray_ordered": ray_ordered_points(gen9, R, P, extent)}
-        for label, pts in point_sets.items():
-            g_safe, zeroed = slope_safe_cotangent(g, (grid, A, c, Wr, br, pts, pe, extent, hidden))
-            args = (grid, A, c, Wr, br, pts, pe, extent, hidden, g_safe)
-            want = fd.fused_sample_decode_bwd_reference(*args)
-            for design in order:
-                funcs, _, bwd_name = designs[design]
-                fd.KERNEL_FUNCTIONS[64] = funcs
-                _, rel, _, _ = decode_bwd_errors(args, fd._fused_sample_decode_bwd_cuda(*args), want)
-                ms = device_ms_per_launch(lambda: fd._fused_sample_decode_bwd_cuda(*args), bwd_name)
-                emit({"sweep": "design", "design": design, "kernel": "fused_decode_bwd", "points": label, "n": R * P,
-                      "ms": ms, "rel_errs": rel, "rel_tol": KERNEL_BWD_SLOPE_SAFE_TOL, "slope_safe_zeroed_points": zeroed})
-                if design == "c128_design" and not max(rel.values()) <= KERNEL_BWD_SLOPE_SAFE_TOL:
-                    raise AssertionError(f"{design} K2 ({label}): {rel}")
-        lib = _build._loaded["fused_decode_c128_at64"]
-        emit({"sweep": "design", "design": "c128_design", "smem_bytes": [lib.decode_c128_smem_bytes(k) for k in range(3)]})
-        fd.KERNEL_FUNCTIONS[64] = designs["c64_kernels"][0]
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from holo_diffusion_torch import render_eval
-from holo_diffusion_torch.ops import fused_decode as fd
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.utils.profiling import counters, reset_counters
 
 # a graphed chunk and an eager one launch the same kernels on the same
@@ -123,7 +123,7 @@ def test_moved_weights_and_a_new_grid_shape_capture_anew():
     want = _eager(model, cell.cams[0], cell.grid)
     held = list(model.state_dict().values())
     model.to("cpu").to(dev)
-    fd.reset_launch_counts()
+    _build.reset_launch_counts()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         reset_counters()
         got = render_eval.render_image_chunked(model, cell.cams[0], cell.grid, device=dev)
@@ -133,7 +133,7 @@ def test_moved_weights_and_a_new_grid_shape_capture_anew():
     del held
     after = _graphs(model, dev).graphs
     assert counted["chunk_graph_captures"] == 4 and len(after) == 4
-    assert fd.launch_counts()["fused_decode_fwd_normals"] == 4 * model.num_passes
+    assert _build.launch_counts()["fused_decode_fwd_normals"] == 4 * model.num_passes
     assert not any(g[0] is b[0] for g in after.values() for b in before.values())
     _assert_close(got, want)
 
@@ -158,7 +158,7 @@ def test_profiler_sees_the_graphs_kernels(config):
     and the launch counters, which count the host's launches, none."""
     dev = _device()
     cell = _cell(config)
-    fd.reset_launch_counts()
+    _build.reset_launch_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         render_eval.render_image_chunked(cell.model, cell.cams[11], cell.grid, device=dev)
@@ -166,4 +166,4 @@ def test_profiler_sees_the_graphs_kernels(config):
     k3 = [e for e in prof.profiler.kineto_results.events()
           if "CUDA" in str(e.device_type()) and K3_BY_CONFIG[config] in e.name()]
     assert len(k3) == 820
-    assert sum(fd.launch_counts().values()) == 0
+    assert sum(_build.launch_counts().values()) == 0

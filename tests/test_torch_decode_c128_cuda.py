@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.ops import fused_decode as fd
 
 EXTENT, PE_DIM, D, C, HIDDEN = 8.0, 27, 32, 128, 256
@@ -63,7 +64,7 @@ def _assert_cotangents_close(got, want, rel):
 
 
 def _launches_at_c128(name):
-    return fd.launch_counts_by_channels().get(f"{name}@C128", 0)
+    return _build.launch_counts().get(f"{name}@C128", 0)
 
 
 @pytest.mark.cuda
@@ -135,8 +136,6 @@ def test_c128_launches_ask_for_the_layouts_shared_memory():
     `bwd_smem_bytes` give, at most the 232,448 a block may opt into; at
     hidden 271 K2 still launches, at 272 (280 columns, past its dA
     accumulators) it refuses, as `kernels_take` says."""
-    from holo_diffusion_torch.ops import _build
-
     dev = _device()
     grid, A, c, Wr, br, pts, pe = (x.to(dev) for x in _inputs(34, 64, 16))
     g = torch.ones((64, 16, 4), device=dev)
@@ -193,8 +192,7 @@ def test_g32c128_training_step_decodes_only_on_the_fused_kernels():
         step = make_train_step(model, opt)
         state = TrainState.create(model, opt)
         batch = make_synthetic_scene(n_views=5, image_size=96, device=dev)
-        fd.reset_launch_counts()
-        ks.reset_launch_counts()
+        _build.reset_launch_counts()
         reset_counters()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
             state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(1))
@@ -204,8 +202,9 @@ def test_g32c128_training_step_decodes_only_on_the_fused_kernels():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     assert np.isfinite(objective)
     assert counted.get("decodes_layer", 0) == 0 and counted["decodes_fused"] == 2
-    assert fd.launch_counts_by_channels() == {"fused_decode_fwd_normals@C128": 2, "fused_decode_bwd@C128": 2}
-    assert sum(ks.launch_counts().values()) == 0
+    counts = _build.launch_counts()
+    assert {k: n for k, n in counts.items() if "@" in k} == {"fused_decode_fwd_normals@C128": 2, "fused_decode_bwd@C128": 2}
+    assert sum(counts[k] for k in ks.ENTRY_POINTS) == 0
 
 
 @pytest.mark.cuda
@@ -233,7 +232,7 @@ def test_g32c128_frame_and_ddpm_steps_match_the_reference():
         cell.setup()
         # the frame replays the chunk graphs its set-up captured: its K3
         # launches show in a device trace, not in the host's launch counters
-        fd.reset_launch_counts()
+        _build.reset_launch_counts()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             run_units(cell, 1)
@@ -241,7 +240,7 @@ def test_g32c128_frame_and_ddpm_steps_match_the_reference():
         kernels = [e.name() for e in prof.profiler.kineto_results.events() if "CUDA" in str(e.device_type())]
         assert sum("decode_c128_fwd_kernel<true>" in k for k in kernels) == 820
         assert not any("fused_decode" in k or "decode_c128_fwd_kernel<false>" in k for k in kernels)
-        assert fd.launch_counts_by_channels() == {}
+        assert not any(_build.launch_counts()[k] for k in fd.ENTRY_POINTS)
         cell.release()
         ok, table = compare.verdict(cell.check()["program"], cell.ctx.limits)
         assert ok, table

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from holo_diffusion_tpu.ops.pallas.fused_decode import fused_sample_decode as jax_fused
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.ops import fused_decode as fd
 
 D, C, HIDDEN, PE_DIM, EXTENT = 8, 32, 48, 27, 4.0
@@ -116,7 +117,7 @@ def test_autograd_function_on_cpu(normals):
     params = [x.clone().requires_grad_(True) for x in (grid, A, c, Wr, br)]
     pts = pts.clone().requires_grad_(False)
     g1 = torch.einsum("dhwc,c->dhw", grid, A[:, -1]) if normals else None
-    fd.reset_launch_counts()
+    _build.reset_launch_counts()
     out = fd.fused_sample_decode(*params, pts, pe, EXTENT, HIDDEN, g1=g1)
     assert out[0].grad_fn is not None
     if normals:
@@ -127,7 +128,7 @@ def test_autograd_function_on_cpu(normals):
         assert torch.equal(p.grad, want)
     _assert_close([p.grad.numpy() for p in params], _jax_vjp(*arrays[:-1], np.asarray(g), normals))
     assert pts.grad is None
-    assert fd.launch_counts() == {name: 0 for name in fd.ENTRY_POINTS}
+    assert not any(_build.launch_counts().values())
 
 
 def test_no_grad_call_bypasses_the_function():

@@ -38,8 +38,8 @@ from holo_diffusion_torch.models import metrics as tmetrics
 from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
 from holo_diffusion_torch.models.implicit import VoxelGridImplicitFunction
 from holo_diffusion_torch.models.render_mlp import RenderMLP
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.ops import fused_decode as fd
-from holo_diffusion_torch.ops import fused_render as fr
 from holo_diffusion_torch.ops import kron_sample as ks
 from holo_diffusion_torch.render_eval import render_image_chunked
 from holo_diffusion_torch.weights import state_dict_from_jax
@@ -50,9 +50,7 @@ LOSS_TOL, GRAD_TOL, NORMALS_TOL = dict(rtol=1e-5), dict(atol=5e-4, rtol=2e-3), d
 
 
 def _no_launches():
-    return (fd.launch_counts() == {n: 0 for n in fd.ENTRY_POINTS}
-            and ks.launch_counts() == {n: 0 for n in ks.ENTRY_POINTS}
-            and fr.launch_counts() == {n: 0 for n in fr.ENTRY_POINTS})
+    return not any(_build.launch_counts().values())
 
 
 def _inputs(seed=29):
@@ -346,7 +344,7 @@ def test_model_chunked_render_matches_jax():
     jm, variables, tm, grid = _models()
     jc = _cams(2)
     j = j_render_chunked(jm, variables, jc[1], jnp.asarray(grid), image_height=9, image_width=11)
-    fd.reset_launch_counts()
+    _build.reset_launch_counts()
     t = render_image_chunked(tm, _port_cams(jc)[1], torch.from_numpy(grid), image_height=9, image_width=11,
                              device="cpu")
     assert set(t) == set(j) == {"images_render", "depths_render", "masks_render", "normals_render"}

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.ops import fused_decode as fd
 from holo_diffusion_torch.ops import fused_render as fr
 from holo_diffusion_torch.ops import kron_sample as ks
@@ -59,11 +60,11 @@ def test_kernel_matches_plain_on_card(shape, normals):
     grid, A, c, Wr, br, pts, pe = (x.to(dev) for x in _inputs(11, **sh))
     kw = {"g1": _g1(grid, A)} if normals else {}
     name = fd.ENTRY_POINTS[int(normals)]
-    before = fd.launch_counts()[name]
+    before = _build.launch_counts()[name]
     out = fd.fused_sample_decode(grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], **kw)
     ref = fd.fused_sample_decode_reference(grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], **kw)
     torch.cuda.synchronize()
-    assert fd.launch_counts()[name] == before + 1
+    assert _build.launch_counts()[name] == before + 1
     assert len(out) == len(ref) == (3 if normals else 2)
     for a, b in zip(out, ref):
         assert a.shape == b.shape
@@ -151,10 +152,10 @@ def test_kernel_takes_strided_points_and_empty_input():
     torch.cuda.synchronize()
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    before = fd.launch_counts()
+    before = _build.launch_counts()
     empty = fd.fused_sample_decode(*args, pts[:0], pe[:0], EXTENT, sh["hidden"])
     assert [tuple(x.shape) for x in empty] == [(0, sh["P"], 1), (0, sh["P"], 3)]
-    assert fd.launch_counts() == before
+    assert _build.launch_counts() == before
 
 
 def _cotangent(seed, R, P):
@@ -183,12 +184,12 @@ def test_backward_kernel_matches_plain_on_card(shape):
     sh = SHAPES[shape]
     grid, A, c, Wr, br, pts, pe = (x.to(dev) for x in _inputs(13, **sh))
     g = _cotangent(14, sh["R"], sh["P"]).to(dev)
-    before = fd.launch_counts()["fused_decode_bwd"]
+    before = _build.launch_counts()["fused_decode_bwd"]
     args = (grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], g)
     got = fd._fused_sample_decode_bwd_cuda(*args)
     want = fd.fused_sample_decode_bwd_reference(*args)
     torch.cuda.synchronize()
-    assert fd.launch_counts()["fused_decode_bwd"] == before + 1
+    assert _build.launch_counts()["fused_decode_bwd"] == before + 1
     _assert_cotangents_close(got, want, 1e-3)
 
 
@@ -202,11 +203,11 @@ def test_autograd_function_launches_forward_and_backward_kernels():
     grid, A, c, Wr, br, pts, pe = (x.to(dev) for x in _inputs(15, **sh))
     g = _cotangent(16, sh["R"], sh["P"]).to(dev)
     params = [x.clone().requires_grad_(True) for x in (grid, A, c, Wr, br)]
-    before = fd.launch_counts()
+    before = _build.launch_counts()
     dens, rgb, _ = fd.fused_sample_decode(*params, pts, pe, EXTENT, sh["hidden"], g1=_g1(grid, A))
     torch.autograd.backward((dens, rgb), (g[..., :1], g[..., 1:4]))
     torch.cuda.synchronize()
-    after = fd.launch_counts()
+    after = _build.launch_counts()
     assert after["fused_decode_fwd_normals"] == before["fused_decode_fwd_normals"] + 1
     assert after["fused_decode_bwd"] == before["fused_decode_bwd"] + 1
     want = fd.fused_sample_decode_bwd_reference(grid, A, c, Wr, br, pts, pe, EXTENT, sh["hidden"], g)
@@ -242,18 +243,18 @@ def test_sampling_kernels_match_plain_on_card(shape):
     dev = _device()
     D, C, n = SAMPLE_SHAPES[shape]
     grid, pts, cot = _sample_inputs(21, D, C, n, dev)
-    before_ks, before_fr = ks.launch_counts(), fr.launch_counts()
+    before = _build.launch_counts()
     out = ks.kron_sample_fwd(grid, pts, EXTENT)
     onehot = fr.trilinear_sample_pallas(grid, pts, EXTENT)
     d_grid = ks.kron_sample_dgrid(pts, cot, grid.shape, EXTENT)
     d_pts = ks.kron_sample_dpoints(grid, pts, cot, EXTENT)
     field_grad = ks.kron_sample_dpoints(grid, pts, None, EXTENT)
     torch.cuda.synchronize()
-    after = ks.launch_counts()
-    assert after["kron_sample_fwd"] == before_ks["kron_sample_fwd"] + 1
-    assert after["kron_sample_dgrid"] == before_ks["kron_sample_dgrid"] + 1
-    assert after["kron_sample_dpoints"] == before_ks["kron_sample_dpoints"] + 2
-    assert fr.launch_counts()["trilinear_sample_onehot"] == before_fr["trilinear_sample_onehot"] + 1
+    after = _build.launch_counts()
+    assert after["kron_sample_fwd"] == before["kron_sample_fwd"] + 1
+    assert after["kron_sample_dgrid"] == before["kron_sample_dgrid"] + 1
+    assert after["kron_sample_dpoints"] == before["kron_sample_dpoints"] + 2
+    assert after["trilinear_sample_onehot"] == before["trilinear_sample_onehot"] + 1
     torch.testing.assert_close(out, ks.kron_sample_fwd_reference(grid, pts, EXTENT), rtol=0, atol=1e-5)
     torch.testing.assert_close(onehot, fr.trilinear_sample_onehot_reference(grid, pts, EXTENT), rtol=0, atol=1e-5)
     _assert_rel_close(d_grid, ks.kron_sample_dgrid_reference(pts, cot, grid.shape, EXTENT), 1e-4, "d_grid")
@@ -270,12 +271,12 @@ def test_dpoints_kernel_matches_plain_by_channels(C, with_cot):
     C 257), with the all-ones and with a random cotangent: 1e-4 of scale."""
     dev = _device()
     grid, pts, cot = _sample_inputs(24, 16, C, 6000, dev)
-    before = ks.launch_counts()["kron_sample_dpoints"]
+    before = _build.launch_counts()["kron_sample_dpoints"]
     g = cot if with_cot else None
     got = ks.kron_sample_dpoints(grid, pts, g, EXTENT)
     want = ks.kron_sample_dpoints_reference(grid, pts, g, EXTENT)
     torch.cuda.synchronize()
-    assert ks.launch_counts()["kron_sample_dpoints"] == before + 1
+    assert _build.launch_counts()["kron_sample_dpoints"] == before + 1
     _assert_rel_close(got, want, 1e-4, f"d_points C {C}")
 
 
@@ -325,12 +326,12 @@ def test_kron_sample_autograd_launches_only_the_cotangents_asked_for():
     dev = _device()
     grid, pts, cot = _sample_inputs(22, 16, 64, 4096, dev)
     g = grid.clone().requires_grad_(True)
-    before = ks.launch_counts()
+    before = _build.launch_counts()
     (ks.trilinear_sample_fused(g, pts.reshape(64, 64, 3), EXTENT) * cot.reshape(64, 64, 64)).sum().backward()
     ks.trilinear_point_gradient(grid[..., :1], pts, EXTENT)
     torch.cuda.synchronize()
-    after = ks.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
+    after = _build.launch_counts()
+    assert {k: after[k] - before[k] for k in ks.ENTRY_POINTS} == {
         "kron_sample_fwd": 1, "kron_sample_dgrid": 1, "kron_sample_dpoints": 1}
     _assert_rel_close(g.grad, ks.kron_sample_dgrid_reference(pts, cot, grid.shape, EXTENT), 1e-4, "d_grid")
 
@@ -339,9 +340,9 @@ def test_kron_sample_autograd_launches_only_the_cotangents_asked_for():
 def test_sampling_kernels_take_empty_and_strided_input():
     dev = _device()
     grid, pts, cot = _sample_inputs(23, 8, 8, 100, dev)
-    before = ks.launch_counts()
+    before = _build.launch_counts()
     assert ks.kron_sample_fwd(grid, pts[:0], EXTENT).shape == (0, 8)
-    assert ks.launch_counts() == before
+    assert _build.launch_counts() == before
     strided = pts.t().contiguous().t()
     assert not strided.is_contiguous()
     torch.testing.assert_close(ks.kron_sample_fwd(grid, strided, EXTENT), ks.kron_sample_fwd(grid, pts, EXTENT),
@@ -358,7 +359,7 @@ def test_sample_kernel_matches_plain_by_channels(C):
     dev = _device()
     grid, pts, _ = _sample_inputs(29, 16, C, 6000, dev)
     on_plane, far = (x.to(dev) for x in _lattice_points(16, 30))
-    before = ks.launch_counts()["kron_sample_fwd"]
+    before = _build.launch_counts()["kron_sample_fwd"]
     for name, p in (("random", pts), ("on_plane", on_plane), ("outside", far)):
         got = ks.kron_sample_fwd(grid, p, EXTENT)
         want = ks.kron_sample_fwd_reference(grid, p, EXTENT)
@@ -366,7 +367,7 @@ def test_sample_kernel_matches_plain_by_channels(C):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5, msg=name)
         if name == "outside":
             assert bool((got == 0).all()), "zero outside the grid"
-    assert ks.launch_counts()["kron_sample_fwd"] == before + 3
+    assert _build.launch_counts()["kron_sample_fwd"] == before + 3
 
 
 @pytest.mark.cuda
@@ -377,9 +378,9 @@ def test_sample_kernel_takes_strided_empty_and_unaligned_input(C):
     channels at C 64, with the float4 path's result."""
     dev = _device()
     grid, pts, _ = _sample_inputs(31, 16, C, 3000, dev)
-    before = ks.launch_counts()
+    before = _build.launch_counts()
     assert ks.kron_sample_fwd(grid, pts[:0], EXTENT).shape == (0, C)
-    assert ks.launch_counts() == before
+    assert _build.launch_counts() == before
     strided = pts.t().contiguous().t()
     assert not strided.is_contiguous()
     want = ks.kron_sample_fwd(grid, pts, EXTENT)
@@ -481,7 +482,7 @@ def test_onehot_sample_kernel_matches_plain_by_channels(C):
     dev = _device()
     grid, pts, _ = _sample_inputs(37, 16, C, 6000, dev)
     on_plane, far = (x.to(dev) for x in _lattice_points(16, 38))
-    before = fr.launch_counts()["trilinear_sample_onehot"]
+    before = _build.launch_counts()["trilinear_sample_onehot"]
     for name, p in (("random", pts), ("on_plane", on_plane), ("outside", far)):
         got = fr.trilinear_sample_pallas(grid, p, EXTENT)
         want = fr.trilinear_sample_onehot_reference(grid, p, EXTENT)
@@ -489,7 +490,7 @@ def test_onehot_sample_kernel_matches_plain_by_channels(C):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5, msg=name)
         if name == "outside":
             assert bool((got == 0).all()), "zero outside the grid"
-    assert fr.launch_counts()["trilinear_sample_onehot"] == before + 3
+    assert _build.launch_counts()["trilinear_sample_onehot"] == before + 3
 
 
 @pytest.mark.cuda
@@ -500,9 +501,9 @@ def test_onehot_sample_kernel_takes_strided_empty_and_unaligned_input(C):
     C 64, with the float4 path's result."""
     dev = _device()
     grid, pts, _ = _sample_inputs(39, 16, C, 3000, dev)
-    before = fr.launch_counts()
+    before = _build.launch_counts()
     assert fr.trilinear_sample_pallas(grid, pts[:0], EXTENT).shape == (0, C)
-    assert fr.launch_counts() == before
+    assert _build.launch_counts() == before
     strided = pts.t().contiguous().t()
     want = fr.trilinear_sample_pallas(grid, pts, EXTENT)
     torch.testing.assert_close(fr.trilinear_sample_pallas(grid, strided, EXTENT), want, rtol=0, atol=0)
@@ -523,7 +524,7 @@ def test_dgrid_kernel_matches_plain_by_channels(C):
     dev = _device()
     _, pts, cot = _sample_inputs(40, 16, C, 6000, dev)
     on_plane, far = (x.to(dev) for x in _lattice_points(16, 41))
-    before = ks.launch_counts()["kron_sample_dgrid"]
+    before = _build.launch_counts()["kron_sample_dgrid"]
     for name, p in (("random", pts), ("on_plane", on_plane), ("outside", far)):
         g = cot[:p.shape[0]]
         got = ks.kron_sample_dgrid(p, g, (16, 16, 16, C), EXTENT)
@@ -533,7 +534,7 @@ def test_dgrid_kernel_matches_plain_by_channels(C):
             assert bool((got == 0).all()) and bool((want == 0).all()), "nothing outside the grid"
         else:
             _assert_rel_close(got, want, 1e-4, f"d_grid C {C} {name}")
-    assert ks.launch_counts()["kron_sample_dgrid"] == before + 3
+    assert _build.launch_counts()["kron_sample_dgrid"] == before + 3
 
 
 @pytest.mark.cuda
@@ -545,9 +546,9 @@ def test_dgrid_kernel_takes_strided_empty_and_unaligned_input(C):
     dev = _device()
     _, pts, cot = _sample_inputs(42, 16, C, 3000, dev)
     shape = (16, 16, 16, C)
-    before = ks.launch_counts()
+    before = _build.launch_counts()
     empty = ks.kron_sample_dgrid(pts[:0], cot[:0], shape, EXTENT)
-    assert ks.launch_counts() == before and bool((empty == 0).all())
+    assert _build.launch_counts() == before and bool((empty == 0).all())
     want = ks.kron_sample_dgrid(pts, cot, shape, EXTENT)
     _assert_rel_close(ks.kron_sample_dgrid(pts.t().contiguous().t(), cot, shape, EXTENT), want, 1e-6, "strided")
     backing = torch.empty(cot.numel() + 1, device=dev)
@@ -602,13 +603,13 @@ def test_auto_fused_decode_launches_only_what_the_kernels_take(hidden):
         f = fn.to(d)
         f.zero_grad()
         g = grid.to(d).clone().requires_grad_(True)
-        before = {**fd.launch_counts(), **ks.launch_counts()}
+        before = _build.launch_counts()
         dens, rgb, _ = f(g, pts.to(d), dirs.to(d))
         (dens.square().sum() + rgb.sum()).backward()
         if d.type == "cuda":
             torch.cuda.synchronize()
-            after = {**fd.launch_counts(), **ks.launch_counts()}
-            launched = {k for k in after if after[k] > before[k]}
+            after = _build.launch_counts()
+            launched = {k for k in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS) if after[k] > before[k]}
             if hidden == 279:
                 assert launched == {"fused_decode_fwd_normals", "fused_decode_bwd"}
             else:
@@ -634,11 +635,11 @@ def test_golden_toy_model_renders_on_the_card_with_default_arguments():
     model = init_weights(HoloDiffusionModel(**TOY), seed=0).eval()
     grid = torch.tanh(torch.randn((8, 8, 8, 8), generator=torch.Generator().manual_seed(48)))
     cam = simple_360_cameras(1, dist=4.0)
-    before = {**fd.launch_counts(), **ks.launch_counts()}
+    before = _build.launch_counts()
     with torch.no_grad():
         card = render_image_chunked(model.to(dev), cam, grid.to(dev), device=dev)
         torch.cuda.synchronize()
-        after = {**fd.launch_counts(), **ks.launch_counts()}
+        after = _build.launch_counts()
         cpu = render_image_chunked(model.cpu(), cam, grid, device="cpu")
     assert all(after[k] == before[k] for k in fd.ENTRY_POINTS)
     assert after["kron_sample_fwd"] > before["kron_sample_fwd"]
@@ -661,12 +662,12 @@ def test_experiment_runs_and_resumes_on_the_card(tmp_path):
 
     dev = _device()
     cfg = tiny_cfg(tmp_path / "exp", ["disable_validation=false", LOOP + "visualize_interval=0"])
-    before = fd.launch_counts()["fused_decode_bwd"]
+    before = _build.launch_counts()["fused_decode_bwd"]
     state, stats = Experiment(cfg).run(max_epochs=2)
     torch.cuda.synchronize()
     assert state.step == 4 and stats.epoch == 1
     assert next(state.model.parameters()).device.type == dev.type
-    assert fd.launch_counts()["fused_decode_bwd"] - before == 2 * state.step
+    assert _build.launch_counts()["fused_decode_bwd"] - before == 2 * state.step
     assert all(np.isfinite(v) for e in stats.history for s in ("train", "val") for v in e[s].values())
 
     exp = Experiment(cfg)
@@ -736,10 +737,10 @@ def test_co3d_experiment_runs_on_the_card(tmp_path):
     write_synthetic_co3d(root, n_seq=2, n_frames=6, H=48, W=64, seed=3)
     extra = ["disable_validation=false", "training_loop_ImplicitronTrainingLoop_args.visualize_interval=0"]
     cfg = tiny_co3d_cfg(tmp_path / "exp", root, extra=extra)
-    before = fd.launch_counts()["fused_decode_bwd"]
+    before = _build.launch_counts()["fused_decode_bwd"]
     state, stats = Experiment(cfg).run(max_epochs=1)
     torch.cuda.synchronize()
-    assert state.step == 2 and fd.launch_counts()["fused_decode_bwd"] - before == 4
+    assert state.step == 2 and _build.launch_counts()["fused_decode_bwd"] - before == 4
     assert all(np.isfinite(v) for e in stats.history for s in ("train", "val") for v in e[s].values())
     state, stats = Experiment(cfg).run(max_epochs=2)
     assert state.step == 4 and [e["epoch"] for e in stats.history] == [0, 1]
@@ -826,10 +827,10 @@ def test_full_experiment_and_eval_only_on_the_card(tmp_path):
     prov = "data_source_ImplicitronDataSource_args.dataset_map_provider_JsonIndexDatasetMapProviderV2_args."
     extra = ["ema_rate=0.9", MODEL + "diffusion_args.schedule_sampler_type=loss-second-moment", "steps_per_dispatch=2",
              "disable_testing=false", LOOP + "test_interval=1", prov + "load_eval_batches=true"]
-    before = fd.launch_counts()["fused_decode_bwd"]
+    before = _build.launch_counts()["fused_decode_bwd"]
     state, stats = Experiment(tiny_co3d_cfg(tmp_path / "exp", root, extra=extra)).run(max_epochs=1)
     torch.cuda.synchronize()
-    assert state.step == 2 and fd.launch_counts()["fused_decode_bwd"] - before == 4
+    assert state.step == 2 and _build.launch_counts()["fused_decode_bwd"] - before == 4
     assert state.sampler_state.loss_counts.device.type == "cuda" and int(state.sampler_state.loss_counts.sum()) >= 2
     assert os.path.exists(tmp_path / "exp" / "eval_epoch_00000000.json")
     res = Experiment(tiny_co3d_cfg(tmp_path / "exp", root, extra=extra + [LOOP + "eval_only=true",
@@ -871,14 +872,14 @@ def test_occupancy_probe_launches_the_fused_kernel_at_one_point_a_ray(normals):
     name = fd.ENTRY_POINTS[int(normals)]
     pts = torch.cat([voxel_coord_grid(64, 8.0).reshape(-1, 3), torch.full((1, 3), 1e6)])
     with torch.no_grad():
-        before = fd.launch_counts()
+        before = _build.launch_counts()
         occ, outside = compute_occupancy(model.to(dev), grid.to(dev))
         raw = model.query_density(grid.to(dev), pts.to(dev))
         torch.cuda.synchronize()
-        after = fd.launch_counts()
+        after = _build.launch_counts()
         raw_cpu = model.cpu().query_density(grid, pts)
         occ_cpu, outside_cpu = compute_occupancy(model, grid)
-    assert {k: after[k] - before[k] for k in after} == {k: 2 * (k == name) for k in after}
+    assert {k: after[k] - before[k] for k in fd.ENTRY_POINTS} == {k: 2 * (k == name) for k in fd.ENTRY_POINTS}
     assert occ.shape == (64, 64, 64) and occ.device.type == "cuda"
     torch.testing.assert_close(raw.cpu(), raw_cpu, rtol=0, atol=1e-4)
     near = (raw_cpu[:-1].abs() <= 1e-4).float().reshape(1, 1, 64, 64, 64)

@@ -14,6 +14,7 @@ import torch
 from holo_diffusion_tpu.ops.pallas import fused_render as jfr
 from holo_diffusion_tpu.ops.pallas import kron_sample as jks
 from holo_diffusion_tpu.ops import voxel as jvoxel
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.ops import fused_render as fr
 from holo_diffusion_torch.ops import kron_sample as ks
 from holo_diffusion_torch.ops import voxel
@@ -90,7 +91,7 @@ def test_backward_launches_only_what_needs_a_gradient(monkeypatch):
     p = torch.from_numpy(pts).requires_grad_(True)
     (ks.trilinear_sample_fused(torch.from_numpy(grid), p, EXTENT) * ct).sum().backward()
     assert calls == ["kron_sample_dgrid", "kron_sample_dpoints"] and p.grad.shape == p.shape
-    assert ks.launch_counts() == {name: 0 for name in ks.ENTRY_POINTS}
+    assert not any(_build.launch_counts().values())
 
 
 @pytest.mark.parametrize("off_planes", [True, False], ids=["off_planes", "random"])
@@ -127,7 +128,7 @@ def test_k7_plain_matches_jax_pallas_interpret(shape):
     got = fr.trilinear_sample_pallas(torch.from_numpy(grid), torch.from_numpy(pts), EXTENT)
     assert tuple(got.shape) == (*shape, 16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    assert fr.launch_counts() == {"trilinear_sample_onehot": 0}
+    assert not any(_build.launch_counts().values())
 
 
 def test_k7_is_forward_only():

@@ -20,7 +20,7 @@ from flax.traverse_util import flatten_dict
 from holo_diffusion_torch.geometry.cameras import PerspectiveCameras
 from holo_diffusion_torch.geometry.rays import RayBundle
 from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
-from holo_diffusion_torch.ops import fused_decode as fd
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.ops.occupancy import occupancy_from_density, tighten_ray_bundle
 from holo_diffusion_torch.render_eval import compute_occupancy, render_image_chunked
 from holo_diffusion_torch.weights import state_dict_from_jax
@@ -108,7 +108,7 @@ def test_compute_occupancy_matches_jax(models):
     jm, variables, tm, _, grid = models
     pts = _probe_points()
     want = np.asarray(jm.apply(variables, jnp.asarray(grid), jnp.asarray(pts), method=JModel.query_density))
-    fd.reset_launch_counts()
+    _build.reset_launch_counts()
     got = tm.query_density(torch.from_numpy(grid), torch.from_numpy(pts)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
     for thr in (0.0, float(np.median(want))):
@@ -121,7 +121,7 @@ def test_compute_occupancy_matches_jax(models):
         near = torch.from_numpy(np.abs(want[:-1] - thr).reshape((R_PROBE,) * 3) <= 1e-4).float()
         clear = torch.nn.functional.max_pool3d(near[None, None], 3, 1, 1)[0, 0] == 0
         np.testing.assert_array_equal(occ.numpy()[clear.numpy()], np.asarray(jocc_mask)[clear.numpy()])
-    assert fd.launch_counts() == {name: 0 for name in fd.ENTRY_POINTS}
+    assert not any(_build.launch_counts().values())
 
 
 def test_empty_space_skip_invariance_gates(models):

@@ -9,6 +9,7 @@ import json
 import logging
 import math
 import os
+import re
 import sys
 import types
 from collections import Counter
@@ -26,6 +27,7 @@ from holo_diffusion_torch.data.synthetic import make_synthetic_scene  # noqa: E4
 from holo_diffusion_torch.experiment import Experiment  # noqa: E402
 from holo_diffusion_torch.models import diffusion as gd  # noqa: E402
 from holo_diffusion_torch.models.holo_model import HoloDiffusionModel  # noqa: E402
+from holo_diffusion_torch.ops import _build  # noqa: E402
 from holo_diffusion_torch.ops import fused_decode as fd  # noqa: E402
 from holo_diffusion_torch.parallel.collectives import mean_over_ranks  # noqa: E402
 from holo_diffusion_torch.parallel.train_step import TrainState, make_train_step  # noqa: E402
@@ -211,21 +213,11 @@ def test_chip_smoke_device_rows_leave_out_the_spans_device_mirrors():
     assert [e.key for e in chip_smoke.device_rows(prof)] == ["fused_decode_kernel", "Memset (Device)"]
 
 
-def _chip_smoke():
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(root)
-    return chip_smoke
-
-
 def test_chip_smoke_counts_kernels_by_their_traced_names():
-    """`chip_smoke.py` counts a graphed path's launches by the names a
-    device trace gives the kernels: each of csrc/ as the entry point that
-    launches it, with its channel count where the name holds it; other
-    device work is not counted."""
+    """`_build.traced_launch_counts` counts a graphed path's launches by the
+    names a device trace gives the kernels (as `chip_smoke.py` reads them):
+    each of csrc/ as the entry point that launches it, with its channel
+    count where the name holds it; other device work is not counted."""
     names = ["void (anonymous namespace)::fused_decode_kernel<64, true>((anonymous namespace)::Params)"] * 3 + [
         "void (anonymous namespace)::fused_decode_kernel<32, false>((anonymous namespace)::Params)",
         "void (anonymous namespace)::fused_decode_bwd_kernel<64>((anonymous namespace)::Params)",
@@ -237,7 +229,7 @@ def test_chip_smoke_counts_kernels_by_their_traced_names():
         "Memcpy DtoD (Device -> Device)",
         "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>(int, float*)",
     ]
-    assert _chip_smoke().kernel_launch_counts(names) == {
+    assert _build.traced_launch_counts(names) == {
         "fused_decode_fwd_normals": 4, "fused_decode_fwd_normals@C64": 3, "fused_decode_fwd_normals@C128": 1,
         "fused_decode_fwd": 1, "fused_decode_fwd@C32": 1, "fused_decode_bwd": 2, "fused_decode_bwd@C64": 1,
         "fused_decode_bwd@C128": 1, "kron_sample_fwd": 1, "trilinear_sample_onehot": 1, "view_sample_bwd": 1}
@@ -247,4 +239,43 @@ def test_chip_smoke_refuses_a_kernel_it_cannot_name():
     """A kernel of csrc/ that no pattern names fails the count rather than
     going uncounted."""
     with pytest.raises(AssertionError, match="fused_decode_split_kernel"):
-        _chip_smoke().kernel_launch_counts(["void fused_decode_split_kernel<64>(Params)"])
+        _build.traced_launch_counts(["void fused_decode_split_kernel<64>(Params)"])
+
+
+def _traced_names(source):
+    """The names a device trace gives each `__global__` kernel of a CUDA
+    source: every bool template parameter both ways, every int one 64."""
+    kernels = re.findall(r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+                         source)
+    for params, name in kernels:
+        values = [("true", "false") if p.split()[0] == "bool" else ("64",) for p in params.split(",") if p.strip()]
+        for args in itertools.product(*values):
+            yield f"void (anonymous namespace)::{name}<{', '.join(args)}>(Params)" if args else f"{name}(Params)"
+
+
+def test_every_kernel_and_symbol_of_csrc_is_in_the_table():
+    """Each `__global__` kernel of csrc/*.cu matches exactly one traced
+    pattern of `_build.KERNELS`, every pattern matches one, and a kernel
+    renamed out of the table is refused; each entry point's C symbol is an
+    `extern "C"` function of its library's source, whose parameters are the
+    entry's argument types and the stream."""
+    patterns = [(re.compile(p), entry) for entry, k in _build.KERNELS.items() for p, _ in k.traced]
+    used, kernels, n_global = set(), set(), 0
+    for src in sorted(_build.CSRC_DIR.glob("*.cu")):
+        n_global += src.read_text().count("__global__")
+        for name in _traced_names(src.read_text()):
+            kernels.add(name.split("<")[0])
+            hits = [(p.pattern, entry) for p, entry in patterns if p.search(name)]
+            assert len(hits) == 1, (name, hits)
+            used.add(hits[0][0])
+            assert _build.traced_launch_counts([name])[hits[0][1]] == 1
+            with pytest.raises(AssertionError, match="matches no traced pattern"):
+                _build.traced_launch_counts([name.replace("_kernel", "_unlisted_kernel")])
+    assert len(kernels) == n_global
+    assert used == {p.pattern for p, _ in patterns}
+    externs = {src.stem: {f: len(args.split(",")) for f, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                                                           src.read_text())}
+               for src in _build.CSRC_DIR.glob("*.cu")}
+    for entry, kernel in _build.KERNELS.items():
+        for library, symbol in kernel.functions.values():
+            assert externs[library].get(symbol) == len(kernel.argtypes) + 1, (entry, library, symbol)

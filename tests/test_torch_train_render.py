@@ -24,7 +24,7 @@ from holo_diffusion_torch.geometry import rays as trays
 from holo_diffusion_torch.geometry.cameras import PerspectiveCameras
 from holo_diffusion_torch.models import metrics as tmetrics
 from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
-from holo_diffusion_torch.ops import fused_decode as fd
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.ops.splat import rasterize_sparse_rays
 from holo_diffusion_torch.weights import state_dict_from_jax
 
@@ -135,7 +135,7 @@ def test_training_render_and_its_grid_gradient_match_jax():
     (_, j_out), j_grad = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(jnp.asarray(grid))
     t_bundle = trays.RayBundle(*(_t(getattr(bundle, f)) for f in ("origins", "directions", "lengths", "xys")))
     t_grid = torch.from_numpy(grid).requires_grad_(True)
-    fd.reset_launch_counts()
+    _build.reset_launch_counts()
     t_out = tm.render_rays(t_grid, t_bundle, training=True, draws=_render_draws(key))
     (torch.sum(t_out.features * torch.from_numpy(w_rgb)) + torch.sum(t_out.masks)).backward()
     j_stage, t_stage = j_out, t_out
@@ -148,7 +148,7 @@ def test_training_render_and_its_grid_gradient_match_jax():
     scale = float(np.abs(np.asarray(j_grad)).max())
     assert scale > 0
     np.testing.assert_allclose(t_grid.grad.numpy(), np.asarray(j_grad), atol=1e-4 * scale)
-    assert fd.launch_counts() == {name: 0 for name in fd.ENTRY_POINTS}
+    assert not any(_build.launch_counts().values())
 
 
 def test_rasterize_sparse_rays_matches_jax():

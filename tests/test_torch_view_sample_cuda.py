@@ -20,6 +20,7 @@ import torch
 from holo_diffusion_torch.geometry.cameras import PerspectiveCameras, look_at_view_transform, project_points_ndc
 from holo_diffusion_torch.models.holo_model import HoloDiffusionModel
 from holo_diffusion_torch.models.view_pooler import sample_view_features
+from holo_diffusion_torch.ops import _build
 from holo_diffusion_torch.ops import view_sample as vs
 from holo_diffusion_torch.weights import init_weights
 
@@ -35,6 +36,11 @@ def _device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _view_launches():
+    counts = _build.launch_counts()
+    return {k: counts[k] for k in ("view_sample_fwd", "view_sample_bwd")}
 
 
 def _map(S, h, w, c, gen, dev, nchw):
@@ -57,7 +63,7 @@ def _xy(S, N, gen, dev):
 def _compare(maps, xy, align_corners, cot):
     """Kernel against plain: forward, then the gradient of every map that
     requires one."""
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     got = vs.view_sample(maps, xy, align_corners)
     want = vs.view_sample_reference(maps, xy, align_corners)
     torch.cuda.synchronize()
@@ -73,7 +79,7 @@ def _compare(maps, xy, align_corners, cot):
             scale = float(b.abs().max())
             assert scale > 0
             assert float((a - b).abs().max()) <= GRAD_REL * scale, (j, float((a - b).abs().max()), scale)
-    assert vs.launch_counts() == {"view_sample_fwd": 1, "view_sample_bwd": int(bool(wanting))}
+    assert _view_launches() == {"view_sample_fwd": 1, "view_sample_bwd": int(bool(wanting))}
 
 
 @pytest.mark.cuda
@@ -139,9 +145,9 @@ def test_kernel_takes_unaligned_strided_and_empty_input():
     sliced = torch.rand((S, 12, 10, 8), generator=gen, device=dev)[:, ::2, :, 1:6].requires_grad_()
     xy = _xy(S, N, gen, dev).contiguous()
     _compare([unaligned, sliced], xy, False, torch.randn((S, N, 9), generator=gen, device=dev))
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     empty = vs.view_sample([unaligned.detach()], xy[:, :0])
-    assert empty.shape == (S, 0, 4) and vs.launch_counts()["view_sample_fwd"] == 0
+    assert empty.shape == (S, 0, 4) and _build.launch_counts()["view_sample_fwd"] == 0
 
 
 @pytest.mark.cuda
@@ -189,14 +195,14 @@ def test_pool_features_launches_one_forward_and_one_backward():
     R, T = look_at_view_transform(dist=2.5, elev=torch.linspace(-20.0, 40.0, S), azim=torch.linspace(0.0, 300.0, S))
     cams = PerspectiveCameras(R=R.to(dev), T=T.to(dev), focal_length=torch.full((S, 2), 2.2, device=dev),
                               principal_point=torch.full((S, 2), 0.05, device=dev))
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     grid = model.pool_features(imgs, cams, fg)
     grid.square().sum().backward()
     torch.cuda.synchronize()
-    assert vs.launch_counts() == {"view_sample_fwd": 1, "view_sample_bwd": 1}
+    assert _view_launches() == {"view_sample_fwd": 1, "view_sample_bwd": 1}
     assert any(p.grad is not None and bool(p.grad.abs().sum() > 0)
                for p in model.image_feature_extractor.parameters())
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     with torch.no_grad():
         model.pool_features(imgs, cams, fg)
-    assert vs.launch_counts() == {"view_sample_fwd": 1, "view_sample_bwd": 0}
+    assert _view_launches() == {"view_sample_fwd": 1, "view_sample_bwd": 0}
