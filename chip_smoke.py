@@ -343,7 +343,9 @@ def unet_conv_flops(model, dev):
     convs = [m for m in model.net_3d.modules() if isinstance(m, torch.nn.Conv3d)]
     handles = [m.register_forward_hook(hook) for m in convs]
     r, C = model.resol, model.feature_size
-    with torch.no_grad():
+    # with grad on the forward runs eagerly, each hook once (a no-grad one
+    # replays a graph, whose hooks fire at its warm-up and capture alone)
+    with torch.enable_grad():
         model.apply_net_3d(torch.zeros((1, r, r, r, C), device=dev),
                            torch.zeros((1,), dtype=torch.long, device=dev))
     for h in handles:

@@ -16,18 +16,35 @@ biases (SimpleUnet3D's scheme); `simple_init=False` zeroes the ResBlocks' out
 convs and the attention projections (guided_diffusion's scheme) and
 `zero_last_conv` the last conv, here and in `init_weights`, through
 `zero_init_parameters`.
+
+On the card a forward that autograd does not record replays a CUDA graph
+of the whole UNet, captured once per model, device and input shape
+(`_UNetGraphs`): the host makes a copy of each input, one replay and one
+copy of the output in place of ~500 launches, and the same kernels run on
+the same operands, so the output is bitwise the eager one's. The route
+(`graph_refusal`) depends on what the call observes alone: a CPU input, a
+forward with grad enabled (every training forward) or one made while the
+current stream captures runs eagerly. Weights are read live at each
+replay; weights moved or replaced, another float32 precision or the
+other train/eval mode capture anew (`_graph_key`). Each forward adds 1 to
+the counter `unet_graphed` or `unet_eager` and each capture 1 to
+`unet_graph_captures` (`utils/profiling.py` `count`, while a torch
+profiler records). What runs in Python inside the body (the `holo.unet`
+span, forward hooks) runs at the graph's warm-up and capture alone.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple, Union
+import weakref
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..utils.profiling import span
+from ..utils.cuda_graphs import GraphCache, storage_key
+from ..utils.profiling import count, span
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _AVG_POOL = {1: nn.AvgPool1d, 2: nn.AvgPool2d, 3: nn.AvgPool3d}
@@ -335,7 +352,19 @@ class UNetModel3D(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond_features=None, y=None) -> torch.Tensor:
         """x: (B, *spatial, C) channels-last; timesteps: (B,); cond_features
-        (B, *spatial, C') or None; y: (B,) labels -> (B, *spatial, out)."""
+        (B, *spatial, C') or None; y: (B,) labels -> (B, *spatial, out).
+        Replays the model's CUDA graph of these input shapes where
+        `graph_refusal` finds no reason not to (module docstring); the
+        result is the caller's own tensor either way."""
+        if graph_refusal(x.device) is None:
+            count("unet_graphed", 1)
+            graphs = _UNetGraphs.of(self, x.device, _graph_key(self))
+            return graphs.replay(self, (x, timesteps, cond_features, y))
+        count("unet_eager", 1)
+        return self._forward(x, timesteps, cond_features, y)
+
+    def _forward(self, x, timesteps, cond_features=None, y=None) -> torch.Tensor:
+        """The eager body of `forward`, which a graph captures."""
         with span("holo.unet"):
             if cond_features is not None:
                 x = torch.cat([x, cond_features], dim=-1)
@@ -351,3 +380,58 @@ class UNetModel3D(nn.Module):
                     h = block(torch.cat([h, hs.pop()], dim=1), emb)
                 # the JAX model returns to the input's dtype before the out norm
                 return self.to_channels_last(self.out(h.to(x.dtype)))
+
+
+# ---- the no-grad forward's CUDA graphs
+
+def graph_refusal(device: torch.device) -> Optional[str]:
+    """Why a forward of an input on `device` runs eagerly; None where it
+    replays a graph."""
+    if device.type != "cuda":
+        return f"the input lies on {device.type}, not a CUDA device"
+    if torch.is_grad_enabled():
+        return "grad is enabled, so autograd records the forward"
+    if torch.cuda.is_current_stream_capturing():
+        return "the current stream is capturing"
+    return None
+
+
+def _graph_key(model: nn.Module):
+    """What a graph of `model` takes as fixed: its train/eval mode, the
+    float32 precision of matmuls and cuDNN, and where each parameter and
+    buffer is stored (their values are read live at each replay)."""
+    return ((model.training, torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32),
+            storage_key(model))
+
+
+def _inputs_key(inputs) -> tuple:
+    return tuple(None if t is None else (tuple(t.shape), t.dtype) for t in inputs)
+
+
+class _UNetGraphs(GraphCache):
+    """One model's graphs on one device (`utils/cuda_graphs.py`) by the
+    shapes and dtypes of (x, timesteps, cond_features, y), each with its
+    static inputs and its static output."""
+
+    _of = weakref.WeakKeyDictionary()  # model -> {device: _UNetGraphs}
+
+    def __init__(self, dev: torch.device):
+        super().__init__(dev)
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def replay(self, model: nn.Module, inputs: tuple) -> torch.Tensor:
+        """The forward of `inputs` through its graph, captured on first use;
+        returns a copy of the static output, which the next replay rewrites."""
+        key = _inputs_key(inputs)
+        if key not in self.graphs:
+            count("unet_graph_captures", 1)
+            static_inputs = tuple(None if t is None else t.clone(memory_format=torch.contiguous_format)
+                                  for t in inputs)
+            graph, static_out = self.capture(model._forward, *static_inputs)
+            self.graphs[key] = graph, static_inputs, static_out
+        graph, static_inputs, static_out = self.graphs[key]
+        for static, t in zip(static_inputs, inputs):
+            if t is not None:
+                static.copy_(t)
+        graph.replay()
+        return static_out.clone()

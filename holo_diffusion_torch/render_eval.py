@@ -32,7 +32,6 @@ CPU, single-chunk renders, `make_chunk_renderer` and
 """
 from __future__ import annotations
 
-import itertools
 import weakref
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
@@ -47,6 +46,7 @@ from .models.renderer import RendererOutput
 from .ops.occupancy import occupancy_from_density, tighten_ray_bundle
 from .ops.voxel import voxel_coord_grid
 from .parallel.mesh import Mesh
+from .utils.cuda_graphs import GraphCache, storage_key
 from .utils.profiling import count, span
 from .weights import check_keys
 
@@ -162,7 +162,7 @@ def render_image_chunked(
         skip = occupancy if isinstance(occupancy, tuple) else (occupancy, False)
     rays = pack_rays(bundle)
     if dev.type == "cuda" and n_rays > step:
-        graphs = _ChunkGraphs.of(model, dev)
+        graphs = _ChunkGraphs.of(model, dev, _graph_key(model))
         scene = graphs.load_scene(voxel_grid, skip)
         path = "chunks_graphed"
 
@@ -228,7 +228,7 @@ def _graph_key(model: HoloDiffusionModel):
     buffer is stored (their values are read live at each replay)."""
     f = model.implicit_function
     return ((f.render_normals, f.sampler, f.collapse_density, f.fuse_decode, torch.get_float32_matmul_precision()),
-            tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers())))
+            storage_key(model))
 
 
 class _Scene:
@@ -249,33 +249,18 @@ class _Scene:
         return self
 
 
-class _ChunkGraphs:
-    """One model's chunk graphs on one device: a memory pool and a side
-    stream shared by its captures, the static scenes by grid and occupancy
-    shape, and the graphs by scene, probes and chunk shape, each with its
-    static rays and its static output."""
+class _ChunkGraphs(GraphCache):
+    """One model's chunk graphs on one device (`utils/cuda_graphs.py`): the
+    static scenes by grid and occupancy shape, and the graphs by scene,
+    probes and chunk shape, each with its static rays and its static
+    output. `_ChunkGraphs.of(model, dev, _graph_key(model))` gets them."""
 
     _of = weakref.WeakKeyDictionary()  # model -> {device: _ChunkGraphs}
 
     def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(dev)
-        self.key = None
+        super().__init__(dev)
         self.scenes: Dict[tuple, _Scene] = {}
         self.graphs: Dict[tuple, tuple] = {}
-
-    @classmethod
-    def of(cls, model: HoloDiffusionModel, dev: torch.device) -> "_ChunkGraphs":
-        """The model's graphs on `dev`, emptied where `_graph_key` changed."""
-        per_device = cls._of.setdefault(model, {})
-        graphs = per_device.get(dev)
-        if graphs is None:
-            graphs = per_device[dev] = cls(dev)
-        key = _graph_key(model)
-        if key != graphs.key:
-            graphs.key, graphs.scenes, graphs.graphs = key, {}, {}
-        return graphs
 
     def load_scene(self, voxel_grid: torch.Tensor, skip: Optional[Skip]) -> _Scene:
         key = (tuple(voxel_grid.shape), None if skip is None else tuple(skip[0].shape))
@@ -295,18 +280,9 @@ class _ChunkGraphs:
         return static_out
 
     def _capture(self, model, scene: _Scene, rays: torch.Tensor, n_probe: int):
-        """Warm up on the side stream (kernels loaded, shared memory set,
-        cuBLAS's workspace made), then capture on it into the pool."""
         count("chunk_graph_captures", 1)
         static_rays = rays.clone()
-        current = torch.cuda.current_stream(self.dev)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            render_packed(model, scene.grid, static_rays, scene.skip, n_probe)
-        current.wait_stream(self.stream)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
-            static_out = render_packed(model, scene.grid, static_rays, scene.skip, n_probe)
+        graph, static_out = self.capture(render_packed, model, scene.grid, static_rays, scene.skip, n_probe)
         return graph, static_rays, static_out
 
 

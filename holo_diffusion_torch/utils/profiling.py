@@ -10,10 +10,11 @@ Spans and counters. `span(name)` marks a layer of the program (the
 `holo.*` names: step, data wait and copy, extractor, pooler, UNet, render
 and its passes, decode and its backward, loss, backward, optimizer, chunk,
 DDPM step, all-reduce) and `count(name, n)` adds to a named counter (the
-bytes and batches the loop copies to the card, decodes by route, chunks by
-the path they took and chunk graphs captured). Spans and counters inside
-a render that a chunk's CUDA graph replays (`render_eval.py`) act at its
-capture alone. Both act only while a
+bytes and batches the loop copies to the card, decodes by route, chunks
+and UNet forwards by the path they took, chunk and UNet graphs captured).
+Spans and counters inside a render that a chunk's CUDA graph replays
+(`render_eval.py`), or inside a UNet forward that its graph replays
+(`models/unet3d.py`), act at the graph's capture alone. Both act only while a
 torch profiler records, whoever started it: then a span is a
 `record_function` annotation in the same trace as the device's activity,
 on its clock, nested in the spans open on its thread. Otherwise `span`
