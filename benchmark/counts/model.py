@@ -4,9 +4,12 @@ shapes (not from the program's modules), by category:
   conv       2 x multiply-adds of every convolution (bias not counted)
   linear     2 x in x out per row of every linear layer
   groupnorm  7 per element (mean, centre, square, variance, scale, gamma, beta)
-  attention  the UNet's q.k and w.v products, 4 x C x T^2 a block
+  attention  the denoiser's attention products (q.k and w.v)
   decode     the render decode as `counts.decode` counts it
 
+The denoiser, whichever the configuration's `net_3d_class_type` names, is
+counted by its plug-in `counts/net3d_<class_type>.py` (`net_3d_forward`),
+which may add categories of its own: the `mfu.*` readers sum them all.
 The ResNet's BatchNorm, pooling, activations and the raymarcher's
 elementwise work are not counted. A backward counts twice its forward (the
 input and the weight cotangents), less the input cotangent of the
@@ -18,6 +21,7 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict, Tuple
 
+from ..reference import net3d_plugin
 from . import decode as dc
 
 GN_PER_ELEMENT = 7
@@ -33,62 +37,10 @@ def linear(cin: int, cout: int, rows: int) -> int:
     return 2 * cin * cout * rows
 
 
-def unet_forward(spec, batch: int = 1) -> Counter:
-    """One evaluation of the UNet at `batch` grids of resol^3 x C."""
-    u = spec.unet
-    mc, mult, nres = u["model_channels"], tuple(u["channel_mult"]), u["num_res_blocks"]
-    attn_at, C, r = tuple(u["attention_resolutions"]), spec.feature_size, spec.resol
-    emb = 4 * mc
-    f: Counter = Counter()
-
-    def n_at(ds):  # positions at downsampling factor ds, all grids
-        return batch * (r // ds) ** 3
-
-    def res(cin, cout, ds):
-        n = n_at(ds)
-        f["groupnorm"] += GN_PER_ELEMENT * (cin + cout) * n
-        f["conv"] += conv(cin, cout, 3, n, 3) + conv(cout, cout, 3, n, 3)
-        f["linear"] += linear(emb, 2 * cout, batch)
-        if cin != cout:
-            f["conv"] += conv(cin, cout, 1, n, 3)
-
-    def attn(c, ds):
-        n = n_at(ds)
-        t = n // batch
-        f["groupnorm"] += GN_PER_ELEMENT * c * n
-        f["conv"] += conv(c, 3 * c, 1, n, 1) + conv(c, c, 1, n, 1)
-        f["attention"] += batch * 4 * c * t * t
-
-    f["linear"] += linear(mc, emb, batch) + linear(emb, emb, batch)
-    ch = mult[0] * mc
-    f["conv"] += conv(C, ch, 3, n_at(1), 3)
-    chans, ds = [ch], 1
-    for level, m in enumerate(mult):
-        for _ in range(nres):
-            res(ch, m * mc, ds)
-            ch = m * mc
-            if ds in attn_at:
-                attn(ch, ds)
-            chans.append(ch)
-        if level != len(mult) - 1:
-            f["conv"] += conv(ch, ch, 3, n_at(2 * ds), 3)
-            chans.append(ch)
-            ds *= 2
-    res(ch, ch, ds)
-    attn(ch, ds)
-    res(ch, ch, ds)
-    for level, m in list(enumerate(mult))[::-1]:
-        for i in range(nres + 1):
-            res(ch + chans.pop(), mc * m, ds)
-            ch = mc * m
-            if ds in attn_at:
-                attn(ch, ds)
-            if level and i == nres:
-                f["conv"] += conv(ch, ch, 3, n_at(ds // 2), 3)
-                ds //= 2
-    f["groupnorm"] += GN_PER_ELEMENT * ch * n_at(1)
-    f["conv"] += conv(ch, C, 3, n_at(1), 3)
-    return f
+def net_3d_forward(spec, batch: int = 1) -> Counter:
+    """One evaluation of the denoiser at `batch` grids of resol^3 x C, as
+    its plug-in `counts/net3d_<net_3d_class_type>.py` counts it."""
+    return net3d_plugin("counts", spec.net_3d_type).forward(spec, batch)
 
 
 def _out(n: int, k: int, s: int, p: int) -> int:
@@ -158,14 +110,15 @@ def _decode(spec, n_rays: int, training: bool, backward: bool) -> int:
 
 def train_step(spec, n_frames: int, height: int, width: int) -> Dict[str, float]:
     """Model FLOPs of one training step, forward and backward, by
-    category; the second (bootstrap) UNet pass counts with its probability."""
+    category; the second (bootstrap) denoiser pass counts with its
+    probability."""
     nt = n_frames if spec.n_train_target_views <= 0 else min(spec.n_train_target_views, n_frames)
     ext, first = extractor_forward(spec, n_frames - nt, height, width)
     fwd = ext + pooling_forward(spec, n_frames - nt)
     passes = 1.0 + (spec.bootstrap_prob if spec.enable_bootstrap else 0.0)
     out = {k: 3.0 * v for k, v in fwd.items()}
     out["conv"] -= first  # the images need no cotangent
-    for k, v in unet_forward(spec).items():
+    for k, v in net_3d_forward(spec).items():
         out[k] = out.get(k, 0.0) + 3.0 * passes * v
     out["decode"] = float(_decode(spec, dc.train_rays(spec, n_frames), True, True))
     return out
@@ -177,5 +130,5 @@ def frame(spec) -> Dict[str, float]:
 
 
 def ddpm_step(spec) -> Dict[str, float]:
-    """Model FLOPs of one DDPM step at one grid: a UNet evaluation."""
-    return {k: float(v) for k, v in unet_forward(spec).items()}
+    """Model FLOPs of one DDPM step at one grid: a denoiser evaluation."""
+    return {k: float(v) for k, v in net_3d_forward(spec).items()}

@@ -1,8 +1,9 @@
 """The whole training step's share of the card's peak: model FLOPs per step
 (`counts.model.train_step`: forward and backward, no recompute, the
-bootstrap pass at its probability) over the traced window's seconds per
-step, against 495 TFLOP/s (dense TF32, `harness/peaks.py`). Layer: the
-whole step. Moves train_step_s."""
+denoiser's FLOPs from `counts/net3d_<net_3d_class_type>.py` with the
+bootstrap pass at its probability; every category summed) over the traced
+window's seconds per step, against 495 TFLOP/s (dense TF32,
+`harness/peaks.py`). Layer: the whole step. Moves train_step_s."""
 from benchmark.harness.peaks import PEAK_FLOPS
 
 UNIT = "%"

@@ -13,7 +13,8 @@ from torch import nn
 
 from . import cameras as cam
 from . import diffusion as diff
-from .nets import Extractor, Implicit, Pooler, UNet, sample_maps
+from . import net3d_plugin
+from .nets import Extractor, Implicit, Pooler, sample_maps
 from .render import mask_rays, render, render_frame
 from .spec import Spec
 
@@ -43,7 +44,7 @@ class Model(nn.Module):
         feat_dim = self.image_feature_extractor.feat_dim()
         self.view_pooler = Pooler(spec.aggregator, spec.aggregator_args, feat_dim)
         self.pooled_feature_mapper = nn.Linear(self.view_pooler.feature_aggregator.dim_out, spec.feature_size)
-        self.net_3d = UNet(spec.feature_size, **spec.unet)
+        self.net_3d = net3d_plugin("reference", spec.net_3d_type).build(spec.feature_size, spec.net_3d)
         self.implicit_function = Implicit(spec)
 
     def preprocess(self, batch: Dict[str, torch.Tensor]):

@@ -8,6 +8,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from . import DEFAULT_NET_3D, net3d_plugin
+
 
 @contextlib.contextmanager
 def precision(tf32: bool = False):
@@ -37,7 +39,8 @@ class Spec:
     enable_bootstrap: bool
     bootstrap_prob: float
     rgb_weights: Tuple[float, ...]  # weight of the rgb mse of the last pass, the one before, ...
-    unet: Dict
+    net_3d_type: str  # net_3d_class_type: the denoiser's plug-in, net3d_<type>.py
+    net_3d: Dict  # its net_3d_<type>_args
     num_steps: int
     beta_start: float
     beta_end: float
@@ -68,7 +71,10 @@ class Spec:
         rend = m["renderer_HoloMultiPassEmissionAbsorptionRenderer_args"]
         march = rend["raymarcher_EmissionAbsorptionRaymarcher_args"]
         diff = m["diffusion_args"]
-        unet = dict(m["net_3d_SimpleUnet3D_args"])
+        net_3d_type = m.get("net_3d_class_type", DEFAULT_NET_3D)
+        net_3d_ref = net3d_plugin("reference", net_3d_type)
+        net_3d = dict(m[f"net_3d_{net_3d_type}_args"])
+        net_3d_ref.check(net_3d)
         fe = dict(m["image_feature_extractor_ResNetFeatureExtractor_args"])
         vp = m["view_pooler_args"]
         agg = vp["feature_aggregator_class_type"]
@@ -85,8 +91,6 @@ class Spec:
             "surface_thickness": (march["surface_thickness"], 1),
             "replicate_last_interval": (march["replicate_last_interval"], False),
             "density_relu": (march["density_relu"], True),
-            "homogeneous_resample": (unet.get("homogeneous_resample", True), True),
-            "dropout": (unet.get("dropout", 0.0), 0.0),
             "masked_sampling": (vp["view_sampler_args"].get("masked_sampling", False), False),
             "feat_emb_dims": (mlp["feat_emb_dims"], 0),
             "rnet_num_layers": (mlp["rnet_num_layers"], 1),
@@ -115,7 +119,8 @@ class Spec:
             chunk_size_grid=m["chunk_size_grid"], n_train_target_views=m["n_train_target_views"],
             mask_threshold=float(m["mask_threshold"]), bg_color=tuple(float(c) for c in m["bg_color"]),
             enable_bootstrap=bool(m["enable_bootstrap"]), bootstrap_prob=float(m["bootstrap_prob"]),
-            rgb_weights=tuple(rgb), unet=unet, num_steps=diff["num_steps"],
+            rgb_weights=tuple(rgb), net_3d_type=net_3d_type, net_3d=net_3d,
+            num_steps=diff["num_steps"],
             beta_start=float(diff["beta_start_unscaled"]), beta_end=float(diff["beta_end_unscaled"]),
             n_pts_train=rays["n_pts_per_ray_training"], n_pts_eval=rays["n_pts_per_ray_evaluation"],
             n_rays_train=rays["n_rays_per_image_sampled_from_mask"],

@@ -47,7 +47,8 @@ def test_unet_by_hand():
     """A one-level UNet at 2^3 by hand: in conv, a ResBlock, the middle
     (two ResBlocks, attention), two output ResBlocks, out."""
     spec = type("S", (), {})()
-    spec.unet = dict(model_channels=32, channel_mult=[1], num_res_blocks=1, attention_resolutions=[])
+    spec.net_3d_type = "SimpleUnet3D"
+    spec.net_3d = dict(model_channels=32, channel_mult=[1], num_res_blocks=1, attention_resolutions=[])
     spec.feature_size, spec.resol = 8, 2
     n, c, emb = 8, 32, 128
     conv3 = lambda a, b: 2 * a * b * 27 * n  # noqa: E731
@@ -57,7 +58,7 @@ def test_unet_by_hand():
     want = (2 * 32 * 128 + 2 * 128 * 128 + conv3(8, c) + res(c, c) + gn(2 * c)
             + 2 * res(c, c) + attn + 2 * gn(2 * c)
             + 2 * res(2 * c, c) + 2 * gn(3 * c) + gn(c) + conv3(c, 8))
-    assert sum(counts.unet_forward(spec).values()) == want
+    assert sum(counts.net_3d_forward(spec).values()) == want
 
 
 def test_decode_by_hand():
@@ -83,7 +84,7 @@ def test_counts_match_hooks_on_the_program(tiny, name):
     r, C = s.resol, s.feature_size
     unet = hook_flops(model.net_3d, lambda: model.apply_net_3d(torch.zeros(1, r, r, r, C),
                                                                torch.zeros(1, dtype=torch.long)))
-    mine = counts.unet_forward(s)
+    mine = counts.net_3d_forward(s)
     assert {k: mine[k] for k in unet} == unet
     size, frames = ctx.config["data"]["image_size"], ctx.config["data"]["frames"]
     imgs = torch.rand(frames, size, size, 3)

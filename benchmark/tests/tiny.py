@@ -9,6 +9,7 @@ import shutil
 from pathlib import Path
 
 from benchmark.harness.manifest import ROOT
+from benchmark.reference import DEFAULT_NET_3D, net3d_plugin
 
 BENCH = ROOT / "benchmark"
 
@@ -18,8 +19,8 @@ def tiny_program_config(cfg: dict, n_targets: int) -> dict:
     m = cfg["model_factory_ImplicitronModelFactory_args"]["model_HoloDiffusionModel_args"]
     m.update(resol=8, feature_size=32, render_image_width=16, render_image_height=16, chunk_size_grid=320,
              n_train_target_views=n_targets)
-    m["net_3d_SimpleUnet3D_args"].update(model_channels=32, num_res_blocks=1, channel_mult=[1, 2],
-                                         attention_resolutions=[2], num_heads=2)
+    net_3d = m.get("net_3d_class_type", DEFAULT_NET_3D)
+    m[f"net_3d_{net_3d}_args"] = net3d_plugin("reference", net_3d).tiny(m[f"net_3d_{net_3d}_args"])
     m["raysampler_AdaptiveRaySampler_args"].update(n_pts_per_ray_training=8, n_pts_per_ray_evaluation=8,
                                                    n_rays_per_image_sampled_from_mask=32)
     m["renderer_HoloMultiPassEmissionAbsorptionRenderer_args"].update(n_pts_per_ray_fine_training=8,
