@@ -12,6 +12,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import yaml
 
+from ..models.holo_model import NET_3D
+
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "configs")
 
 # top-level keys that may be set from the command line even when the YAML
@@ -150,8 +152,9 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
                        "(set image_feature_extractor_ResNetFeatureExtractor_args.weights_path "
                        "to a torchvision resnet state_dict)")
 
+    net_3d_type = _check_class_type(m.get("net_3d_class_type", "SimpleUnet3D"), tuple(NET_3D),
+                                    "net_3d_class_type")
     for key, default in (
-        ("net_3d_class_type", "SimpleUnet3D"),
         ("raysampler_class_type", "AdaptiveRaySampler"),
         ("renderer_class_type", "HoloMultiPassEmissionAbsorptionRenderer"),
         ("implicit_function_class_type", "HoloVoxelGridImplicitFunction"),
@@ -236,17 +239,10 @@ def model_args_from_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
             masked_sampling=vp.get("view_sampler_args", {}).get("masked_sampling", False),
         ),
     )
+    args["net_3d_class_type"] = net_3d_type
     if args["net_3d_enabled"]:
-        net = m.get("net_3d_SimpleUnet3D_args", {})
-        args["net_3d_args"] = dict(
-            model_channels=net.get("model_channels", 64),
-            num_res_blocks=net.get("num_res_blocks", 2),
-            num_heads=net.get("num_heads", 2),
-            channel_mult=tuple(net.get("channel_mult", (1, 1, 2, 4, 8))),
-            attention_resolutions=tuple(net.get("attention_resolutions", (4, 8))),
-            dropout=net.get("dropout", 0.0),
-            homogeneous_resample=net.get("homogeneous_resample", True),
-        )
+        read_args, _ = NET_3D[net_3d_type]
+        args["net_3d_args"] = read_args(m.get(f"net_3d_{net_3d_type}_args", {}))
     if args["diffusion_enabled"]:
         args["diffusion_args"] = dict(
             schedule_name=diff.get("beta_schedule_type", "linear"),

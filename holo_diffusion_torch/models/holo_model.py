@@ -1,7 +1,9 @@
 """HoloDiffusionModel (port of holo_diffusion_tpu/models/holo_model.py):
 view pooling -> bootstrapped two-pass diffusion -> multi-pass EA rendering
 -> photometric losses, for training and evaluation, plus the serving forward
-on a given voxel grid.
+on a given voxel grid. The denoiser `net_3d` is the one its
+`net_3d_class_type` names in `NET_3D`: the 3D UNet (`SimpleUnet3D`) or the
+diffusion transformer (`DiT3D`).
 
 Random draws of the training forward come from `Draws` (random_draws.py):
 injected values, or an explicit `torch.Generator`. Batches are one scene's
@@ -22,12 +24,64 @@ from ..ops.voxel import voxel_coord_grid
 from ..random_draws import Draws
 from ..utils.profiling import span
 from . import diffusion as gd
+from .dit3d import DiT3D
 from .feature_extractor import ResNetFeatureExtractor
 from .implicit import VoxelGridImplicitFunction
 from .metrics import as_unit_float, get_objective, multipass_view_metrics, preprocess_input
 from .renderer import RendererOutput, multipass_ea_render
 from .unet3d import UNetModel3D
 from .view_pooler import ViewPooler
+
+
+def _unet3d_args(net: dict) -> dict:
+    """`net_3d_SimpleUnet3D_args` -> the kwargs of `UNetModel3D`."""
+    return dict(
+        model_channels=net.get("model_channels", 64),
+        num_res_blocks=net.get("num_res_blocks", 2),
+        num_heads=net.get("num_heads", 2),
+        channel_mult=tuple(net.get("channel_mult", (1, 1, 2, 4, 8))),
+        attention_resolutions=tuple(net.get("attention_resolutions", (4, 8))),
+        dropout=net.get("dropout", 0.0),
+        homogeneous_resample=net.get("homogeneous_resample", True),
+    )
+
+
+def _unet3d(feature_size: int, resol: int, args: dict) -> nn.Module:
+    args.setdefault("model_channels", 64)
+    args.setdefault("num_res_blocks", 2)
+    args.setdefault("num_heads", 2)
+    args.setdefault("channel_mult", (1, 1, 2, 4, 8))
+    args.setdefault("attention_resolutions", (4, 8))
+    return UNetModel3D(in_channels=feature_size, out_channels=feature_size, **args)
+
+
+# DiT3D's keys (its constructor holds their defaults, DiT-XL/2's widths);
+# DiT-3D's windowed attention is not ported
+_DIT3D_KEYS = ("hidden_size", "depth", "num_heads", "patch_size", "mlp_ratio")
+_DIT3D_WINDOW_KEYS = ("window_size", "window_block_indexes")
+
+
+def _dit3d_args(net: dict) -> dict:
+    """`net_3d_DiT3D_args` -> the keys given, for `DiT3D`; a key it does not
+    know, or the windowed attention, is refused."""
+    window = sorted(set(net) & set(_DIT3D_WINDOW_KEYS))
+    if window:
+        raise NotImplementedError(f"net_3d_DiT3D_args {window}: DiT-3D's windowed attention is not supported; "
+                                  "every block attends over all tokens")
+    unknown = sorted(set(net) - set(_DIT3D_KEYS))
+    if unknown:
+        raise ValueError(f"unknown net_3d_DiT3D_args keys {unknown} (known: {sorted(_DIT3D_KEYS)})")
+    return dict(net)
+
+
+def _dit3d(feature_size: int, resol: int, args: dict) -> nn.Module:
+    return DiT3D(in_channels=feature_size, input_size=resol, **args)
+
+
+# net_3d_class_type -> (the reader of its yaml `net_3d_<class_type>_args`,
+# fn(feature_size, resol, net_3d_args): the denoiser, a module of
+# (B, r, r, r, C) grids and (B,) timesteps -> (B, r, r, r, C))
+NET_3D = {"SimpleUnet3D": (_unet3d_args, _unet3d), "DiT3D": (_dit3d_args, _dit3d)}
 
 DEFAULT_LOSS_WEIGHTS = {
     "loss_rgb_mse": 1.0,
@@ -46,6 +100,7 @@ class HoloDiffusionModel(nn.Module):
         feature_size: int = 64,
         num_passes: int = 2,
         net_3d_enabled: bool = True,
+        net_3d_class_type: str = "SimpleUnet3D",
         net_3d_args: Optional[dict] = None,
         diffusion_enabled: bool = True,
         diffusion_args: Optional[dict] = None,
@@ -136,15 +191,11 @@ class HoloDiffusionModel(nn.Module):
                 feat_dim=self.image_feature_extractor.get_feat_dims(), **(view_pooler_args or {}))
             self.pooled_feature_mapper = nn.Linear(self.view_pooler.out_dim, feature_size)
         if net_3d_enabled:
-            args = dict(net_3d_args or {})
-            args.setdefault("model_channels", 64)
-            args.setdefault("num_res_blocks", 2)
-            args.setdefault("num_heads", 2)
-            args.setdefault("channel_mult", (1, 1, 2, 4, 8))
-            args.setdefault("attention_resolutions", (4, 8))
-            self.net_3d = UNetModel3D(
-                in_channels=feature_size, out_channels=feature_size, **args
-            )
+            if net_3d_class_type not in NET_3D:
+                raise NotImplementedError(f"net_3d_class_type={net_3d_class_type!r}: supported denoisers are "
+                                          f"{tuple(NET_3D)}")
+            _, build = NET_3D[net_3d_class_type]
+            self.net_3d = build(feature_size, resol, dict(net_3d_args or {}))
         self.implicit_function = VoxelGridImplicitFunction(
             resol=resol,
             volume_extent=volume_extent,

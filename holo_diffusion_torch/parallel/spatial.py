@@ -223,17 +223,23 @@ class _Slab:
 
 
 def _unet_of(model) -> UNetModel3D:
-    # a HoloDiffusionModel's denoiser is its net_3d (apply_net_3d)
-    return model.net_3d if isinstance(model, HoloDiffusionModel) else model
+    """A HoloDiffusionModel's denoiser is its net_3d (apply_net_3d); only
+    the UNet is sharded, any other denoiser is refused by its class."""
+    net = model.net_3d if isinstance(model, HoloDiffusionModel) else model
+    if not isinstance(net, UNetModel3D):
+        raise NotImplementedError(f"spatial sharding covers the 3D UNet (UNetModel3D) alone, "
+                                  f"not a {type(net).__name__}")
+    return net
 
 
 def _slab_denoiser(model, mesh: Mesh) -> _Slab:
     """fn(slab, t): the denoiser on the rank's (B, D / N, H, W, C) slab ->
     the output's slab. `model`: a UNetModel3D or a HoloDiffusionModel
     (through its `net_3d`, as `apply_net_3d`)."""
+    unet = _unet_of(model)
     if mesh is None or mesh.group is None:
         raise ValueError("the sharded denoiser needs a mesh (parallel.mesh.make_mesh)")
-    return _Slab(_unet_of(model), mesh)
+    return _Slab(unet, mesh)
 
 
 def make_sharded_denoiser(model, mesh: Mesh) -> Callable:

@@ -417,13 +417,16 @@ def test_model_args_read_the_sampler_as_jax(config):
     names none), with or without an override; no config key sets
     fuse_decode or collapse_density. A YAML of the port alone (the
     reference model's 32^3 x 128 grid, `hydrant_g32c128`) is read by JAX's
-    loader and translator from the port's file."""
-    override = ["model_factory_ImplicitronModelFactory_args.model_HoloDiffusionModel_args."
-                "implicit_function_HoloVoxelGridImplicitFunction_args.sampler=fused"]
+    loader and translator from the port's file; where its denoiser is the
+    port's alone (DiT3D), JAX reads it with its own, the UNet."""
+    model = "model_factory_ImplicitronModelFactory_args.model_HoloDiffusionModel_args."
+    override = [model + "implicit_function_HoloVoxelGridImplicitFunction_args.sampler=fused"]
     port_only = not os.path.exists(os.path.join(J_CONFIG_DIR, config + ".yaml"))
     j_name = os.path.join(CONFIG_DIR, config + ".yaml") if port_only else config
+    j_net = [] if model_args_from_config(load_config(config))["net_3d_class_type"] == "SimpleUnet3D" else [
+        model + "net_3d_class_type=SimpleUnet3D"]
     for ov in ([], override):
         t = model_args_from_config(load_config(config, ov))
-        j = j_model_args(j_load_config(j_name, ov))
+        j = j_model_args(j_load_config(j_name, j_net + ov))
         assert t["sampler"] == j["sampler"] == ("fused" if ov else "packed")
         assert "fuse_decode" not in t and "collapse_density" not in t

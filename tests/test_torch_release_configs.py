@@ -92,6 +92,8 @@ def test_release_config_translates_as_jax(config):
     for k, v in t.items():
         if k in ("net_3d_args", "diffusion_args"):
             assert v == {kk: j[k][kk] for kk in v}, k
+        elif k == "net_3d_class_type":  # the port's key; JAX admits the UNet alone
+            assert v == "SimpleUnet3D"
         else:
             assert v == j[k], k
     # the port's loop also reads `profile_steps`, which the JAX loop takes

@@ -190,6 +190,8 @@ def test_model_args_match_jax_config(config):
             assert v == {kk: j[k][kk] for kk in v}
         elif k == "diffusion_args":
             assert v == {kk: j[k][kk] for kk in v}
+        elif k == "net_3d_class_type":  # the port's key; JAX admits the UNet alone
+            assert v == "SimpleUnet3D"
         else:
             assert v == j[k], k
     assert t["chunk_size_grid"] == (40960 if config == "hydrant" else 0)
