@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --only c128  # build, then the c128 phase alone
+    python3 chip_smoke.py --only sample  # build, K9's kernel case, then the DDPM sample alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
   build    compile the CUDA kernels with nvcc (build/holo_diffusion_torch/)
@@ -22,7 +23,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
            the view sampler (K8) forward and backward at the release
            pooling shapes (30 and 23 source views, the 16^3 voxel centres,
            the six extractor maps) by CUDA events, against its bound, its
-           plain version and `grid_sample`
+           plain version and `grid_sample`; the small-volume convolution
+           (K9) at the hydrant UNet's 51 routed calls (at most 64 output
+           positions), each bitwise `F.conv3d` (cuDNN) and itself on a
+           rerun, by level of output voxels (1^3, 2^3, 4^3) its device ms
+           a launch, its bound and `F.conv3d`'s ms
   c128     the C-128 kernels (csrc/fused_decode_c128.cu) on the
            hydrant_g32c128 model (32^3 x 128 grid, hidden 256): K1 and K3
            at a training fine pass (393,216 points) and an evaluation chunk
@@ -144,7 +149,9 @@ renders chunked frames on the card (each chunk a graph's replay, which
 launches its kernels without a call into their wrappers), by name in a
 device trace (`traced_launches`; there K3 also launches once a pass in
 each chunk graph's warm-up): C-128 training (K3 and K2 at C 128 alone), serving
-(`sample` + `render`, which must launch K1 and K3), unfused serving (K4, K6
+(`sample` + `render`, which must launch K1 and K3, and K9 exactly 51
+times a UNet forward the card runs: each of the chain's graph replays and
+each graph's warm-up), unfused serving (K4, K6
 and K7, no K1/K3), training (the 5 timed steps, which must launch K3 and K2,
 at C 64 alone), unfused training (K4, K5 and K6,
 no K1/K2/K3), the training loop (runs A and B: K2 twice a step, K3
@@ -182,6 +189,7 @@ import time
 import zlib
 
 from benchmark.counts.decode import decode_bwd_cost, decode_cost
+from benchmark.counts.unet_small_convs import Conv as SmallConv
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 CUDA-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -994,6 +1002,131 @@ def view_sample_kernel_phase(results):
                 results[name][case] = {k: v for k, v in rec.items() if k.endswith(("err", "ms"))}
 
 
+# the hydrant UNet's calls the route sends to K9 in a no-grad forward at B = 1
+HYDRANT_SMALL_CONVS = 51
+
+
+def small_conv_kernel_phase(model, results):
+    """K9 (`small_conv3d`) at every call the route takes in a no-grad
+    forward of `model`'s UNet at B = 1 (hydrant: 51, at 1^3, 2^3 and 4^3
+    output voxels), inputs from a seeded forward: each bitwise `F.conv3d`
+    (cuDNN, TF32 off: K9 sums each output in the order of cuDNN's kernel
+    for these shapes, and any other order lands about 1e-7 of scale away)
+    and bitwise itself on a rerun; then, by level, the device ms of a
+    launch (torch.profiler, the same call repeated, so the L2 cache holds
+    what of its weights fits), the bound (`benchmark/counts/
+    unet_small_convs`: the used taps' weights, bias, input and output at
+    3.35 TB/s, or the in-bounds FLOPs at the float32 peak) and
+    `F.conv3d`'s ms by CUDA events, which is both the plain version's and
+    the library's."""
+    import torch
+    import torch.nn.functional as F
+
+    from holo_diffusion_torch.models.unet3d import RoutedConv3d
+    from holo_diffusion_torch.ops import small_conv3d as sc
+
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(27)
+    r, C = model.resol, model.feature_size
+    x, t = torch.randn(1, r, r, r, C, generator=g, device=dev), torch.tensor([640], device=dev)
+    calls = []
+
+    def grab(conv, args):
+        if sc.refusal(args[0].shape, args[0].device, args[0].dtype, conv) is None:
+            calls.append((args[0].clone(), conv))
+
+    hooks = [m.register_forward_pre_hook(grab) for m in model.net_3d.modules() if isinstance(m, RoutedConv3d)]
+    try:
+        with torch.no_grad():
+            model.net_3d._forward(x, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(calls) != HYDRANT_SMALL_CONVS:
+        raise AssertionError(f"small_conv3d: the route took {len(calls)} calls, expected {HYDRANT_SMALL_CONVS}")
+    levels = {}
+    with torch.no_grad():
+        for i, (inp, conv) in enumerate(calls):
+            k, stride = conv.kernel_size[0], conv.stride
+            k9 = lambda: sc.small_conv3d(inp, conv.weight, conv.bias, stride)  # noqa: E731
+            lib = lambda: F.conv3d(inp, conv.weight, conv.bias, stride, k // 2)  # noqa: E731
+            got, again, want = k9(), k9(), lib()
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                raise AssertionError(f"small_conv3d call {i}: {float((got - want).abs().max())} from F.conv3d, "
+                                     f"rerun bitwise {torch.equal(got, again)}")
+            n_in, n_out = inp.shape[-1], got.shape[-1]
+            cost = SmallConv(conv.in_channels, conv.out_channels, k, stride[0], n_in, n_out, inp.shape[0])
+            lv = levels.setdefault(n_out, {"convs": 0, "ms": 0.0, "wrapper_ms": 0.0, "library_ms": 0.0,
+                                           "bound_ms": 0.0, "bytes": 0, "gflop": 0.0})
+            lv["convs"] += 1
+            lv["ms"] += device_ms_per_launch(k9, "small_conv3d_kernel")
+            lv["wrapper_ms"] += cuda_time_ms(k9)
+            lv["library_ms"] += cuda_time_ms(lib)
+            lv["bound_ms"] += 1e3 * cost.least_seconds(PEAK_F32_FLOPS, PEAK_BYTES_PER_S)
+            lv["bytes"] += cost.bytes()
+            lv["gflop"] += cost.flops() / 1e9
+    step = {key: sum(lv[key] for lv in levels.values()) for key in ("ms", "library_ms", "bound_ms")}
+    results["small_conv3d"] = {
+        "name": "small_conv3d",
+        "route": "cuda",
+        "source": "holo_diffusion_torch/csrc/small_conv3d.cu",
+        "replaces": "none (the JAX package leaves its convolutions to XLA)",
+        "max_abs_err": 0.0,
+        "ms": step["ms"] / len(calls),
+        "plain_ms": step["library_ms"] / len(calls),
+        "bound_ms": step["bound_ms"] / len(calls),
+        "library_ms": step["library_ms"] / len(calls),
+        "ms_a_forward": step["ms"],
+        "library_ms_a_forward": step["library_ms"],
+        "bound_ms_a_forward": step["bound_ms"],
+    }
+    for n_out, lv in sorted(levels.items()):
+        n = lv["convs"]
+        rec = {"name": "small_conv3d", "max_abs_err": 0.0, "ms": lv["ms"] / n, "plain_ms": lv["library_ms"] / n,
+               "bound_ms": lv["bound_ms"] / n, "library_ms": lv["library_ms"] / n}
+        emit({"phase": "kernels", "case": f"{n_out}^3", **rec, "route": "cuda", "convs": n,
+              "wrapper_ms": lv["wrapper_ms"] / n, "ms_a_forward": lv["ms"], "library_ms_a_forward": lv["library_ms"],
+              "bound_ms_a_forward": lv["bound_ms"], "bytes": lv["bytes"], "gflop": lv["gflop"], "bitwise": True,
+              "library": "torch.nn.functional.conv3d (cuDNN, TF32 off)",
+              "ms_below_library_ms": lv["ms"] < lv["library_ms"]})
+        results["small_conv3d"][f"{n_out}^3"] = rec
+
+
+def expect_small_conv_launches(counts, label, steps):
+    """Fail unless the window of `counts` (`traced_launches`) launched K9
+    exactly 51 times a UNet forward the card ran (each graph replay, each
+    eager forward and each capture's warm-up; the capture itself runs
+    nothing) and the chain's `steps` forwards were all counted."""
+    forwards = counts.get("unet_graphed", 0) + counts.get("unet_eager", 0)
+    if forwards != steps:
+        raise AssertionError(f"{label}: {forwards} UNet forwards counted, expected {steps}")
+    ran = forwards + counts.get("unet_graph_captures", 0)
+    expect_launches(counts, label, exactly={"small_conv3d": HYDRANT_SMALL_CONVS * ran})
+
+
+def sample_main_path(model, dev, conv_flops, n_convs):
+    """The serving main path's sample: a 1000-step DDPM chain of `model`
+    at B = 1 from a seeded generator, timed, beside the UNet's conv FLOPs
+    a forward (`unet_conv_flops`, counted before the path's window: its
+    forward runs with grad on) and their float32 bound; returns the grid."""
+    import torch
+
+    from holo_diffusion_torch.sampling import sample_random_voxel_features
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = sample_random_voxel_features(model, gen)
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - t0
+    steps = model.schedule.num_timesteps
+    emit({"phase": "sample", "steps": steps, "seconds": t_sample,
+          "unet_evals_per_s": steps / t_sample, "shape": list(v.shape),
+          "unet_convs": n_convs, "conv_gflop_per_eval": conv_flops / 1e9,
+          "conv_f32_bound_ms_per_eval": 1e3 * conv_flops / PEAK_F32_FLOPS})
+    return v
+
+
 def unfused_models(model, build_model, dev):
     """The hydrant model's weights in the unfused implicit function
     (fuse_decode="off"): sampler "fused"; collapse_density="on"; sampler
@@ -1010,8 +1143,10 @@ def unfused_models(model, build_model, dev):
 class traced_launches:
     """The hand-written kernels the device runs from here to `counts()`,
     counted by name (`_build.traced_launch_counts`) in a torch.profiler
-    trace of the device alone, with the program's chunk counters over the
-    same window (`chunk_graph_captures`, `chunks_graphed`, `chunks_eager`).
+    trace of the device alone, with the program's chunk and UNet counters
+    over the same window (`chunk_graph_captures`, `chunks_graphed`,
+    `chunks_eager`, `unet_graph_captures`, `unet_graphed`, `unet_eager`,
+    and the 3D convolutions' routes `conv3d_small`, `conv3d_cudnn`).
     A chunk graph's replay (render_eval.py) launches its kernels without a
     call into their wrappers, so the host's launch counters
     (`_build.launch_counts`) count a graphed frame's warm-ups and not its
@@ -1035,7 +1170,7 @@ class traced_launches:
         from holo_diffusion_torch.utils.profiling import counters
 
         torch.cuda.synchronize()
-        chunks = {k: n for k, n in counters().items() if k.startswith("chunk")}
+        chunks = {k: n for k, n in counters().items() if k.startswith(("chunk", "unet_", "conv3d_"))}
         self.prof.stop()
         return {**_build.traced_launch_counts(e.name() for e in self.prof.profiler.kineto_results.events()
                                               if "CUDA" in str(e.device_type())), **chunks}
@@ -3365,8 +3500,9 @@ def main(argv=None):
     import torch
 
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one GPU.")
-    parser.add_argument("--only", choices=("c128",),
-                        help="c128: the build, the C-128 kernels and their training main path alone")
+    parser.add_argument("--only", choices=("c128", "sample"),
+                        help="c128: the build, the C-128 kernels and their training main path alone; "
+                             "sample: the build, K9's kernel case and the DDPM sample's main path alone")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -3428,9 +3564,25 @@ def main(argv=None):
     model_k1.load_state_dict(model.state_dict())
     model_k1.to(dev).eval()
 
+    if opts.only == "sample":
+        small_conv_kernel_phase(model, results)
+        conv_flops, n_convs = unet_conv_flops(model, dev)
+        launches = traced_launches()
+        sample_main_path(model, dev, conv_flops, n_convs)
+        counts = launches.counts()
+        emit({"phase": "main_path", "path": "sample", "launches": counts})
+        expect_small_conv_launches(counts, "sampling", model.schedule.num_timesteps)
+        results["small_conv3d"]["launches"] = counts["small_conv3d"]
+        emit({"kernels": [results["small_conv3d"]]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     kernel_phase(model, results)
     sample_kernel_phase(model, results)
     view_sample_kernel_phase(results)
+    small_conv_kernel_phase(model, results)
     c128_phase(dev, results)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3439,17 +3591,7 @@ def main(argv=None):
 
     # ---- main path: sample, then render (launch counts read after)
     launches = traced_launches()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    v = sample_random_voxel_features(model, gen)
-    torch.cuda.synchronize()
-    t_sample = time.perf_counter() - t0
-    steps = model.schedule.num_timesteps
-    emit({"phase": "sample", "steps": steps, "seconds": t_sample,
-          "unet_evals_per_s": steps / t_sample, "shape": list(v.shape),
-          "unet_convs": n_convs, "conv_gflop_per_eval": conv_flops / 1e9,
-          "conv_f32_bound_ms_per_eval": 1e3 * conv_flops / PEAK_F32_FLOPS})
+    v = sample_main_path(model, dev, conv_flops, n_convs)
 
     out_dir = os.path.join(here, "build", "chip_smoke")
     frames = {}
@@ -3468,7 +3610,9 @@ def main(argv=None):
     emit({"phase": "main_path", "path": "serve", "launches": counts})
     expect_launches(counts, "serving", some=("fused_decode_fwd", "fused_decode_fwd_normals"),
                     none=("fused_decode_bwd", *ks.ENTRY_POINTS, *fr.ENTRY_POINTS))
-    for name in ("fused_decode_fwd", "fused_decode_fwd_normals"):
+    # the render runs no UNet: K9's launches are the sample's
+    expect_small_conv_launches(counts, "serving", model.schedule.num_timesteps)
+    for name in ("fused_decode_fwd", "fused_decode_fwd_normals", "small_conv3d"):
         results[name]["launches"] = counts[name]
 
     # ---- check: outputs in range, card against the CPU on a small input
@@ -3593,7 +3737,8 @@ def main(argv=None):
     rehearsal_phase(here, dev, results)
 
     emit({"kernels": [results[n] for n in (*fd.ENTRY_POINTS, *ks.ENTRY_POINTS, *fr.ENTRY_POINTS,
-                                           "view_sample_fwd", "view_sample_bwd", *C128_KERNELS)]})
+                                           "view_sample_fwd", "view_sample_bwd", "small_conv3d",
+                                           *C128_KERNELS)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -31,6 +31,21 @@ the counter `unet_graphed` or `unet_eager` and each capture 1 to
 `unet_graph_captures` (`utils/profiling.py` `count`, while a torch
 profiler records). What runs in Python inside the body (the `holo.unet`
 span, forward hooks) runs at the graph's warm-up and capture alone.
+
+The 3D convolutions are `RoutedConv3d`s: a no-grad float32 forward on the
+card of a 1^3 or 3^3 convolution whose output has at most 64 positions
+(batch x output voxels; at B = 1 the levels of 4^3 voxels and fewer, 51
+convolutions of hydrant's UNet) takes the hand-written kernel K9
+(`ops/small_conv3d.py`) in place of cuDNN, eagerly or inside the graph
+alike; every other call (the CPU, grad on, bfloat16 autocast, more
+positions, extents K9 has no box walk for) takes the library's
+convolution. The route
+(`small_conv3d.refusal`) depends on what the call observes alone, as the
+graph's does, and each call on the card adds 1 to the counter
+`conv3d_small` or `conv3d_cudnn`. K9 sums each output in the order of
+cuDNN's kernel for these shapes, so at the UNets' shapes both routes give
+the same bits, and it reruns bitwise, so a graphed forward stays bitwise
+the eager one.
 """
 from __future__ import annotations
 
@@ -43,10 +58,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import small_conv3d
 from ..utils.cuda_graphs import GraphCache, storage_key
 from ..utils.profiling import count, span
-
-_CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _AVG_POOL = {1: nn.AvgPool1d, 2: nn.AvgPool2d, 3: nn.AvgPool3d}
 
 
@@ -72,6 +86,27 @@ class GroupNorm32(nn.GroupNorm):
 
     def forward(self, x):
         return super().forward(x.float()).type(x.dtype)
+
+
+class RoutedConv3d(nn.Conv3d):
+    """`nn.Conv3d` (the same parameters and state_dict) whose forward takes
+    K9 (`ops/small_conv3d.py`) where `small_conv3d.refusal` finds no reason
+    not to, and the library's convolution otherwise; each call on the card
+    adds 1 to the counter `conv3d_small` or `conv3d_cudnn` of its route."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return super().forward(x)
+        # grad on (every training forward) is refused before the route looks
+        # at the call's geometry
+        if not torch.is_grad_enabled() and small_conv3d.refusal(x.shape, x.device, x.dtype, self) is None:
+            count("conv3d_small", 1)
+            return small_conv3d.small_conv3d(x, self.weight, self.bias, self.stride)
+        count("conv3d_cudnn", 1)
+        return super().forward(x)
+
+
+_CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: RoutedConv3d}
 
 
 def conv_nd(dims: int, cin: int, cout: int, k: int = 3, stride: Union[int, Tuple[int, ...]] = 1) -> nn.Module:

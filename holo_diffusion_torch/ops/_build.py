@@ -43,7 +43,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
-SOURCES = ("fused_decode", "fused_decode_bwd", "fused_decode_c128", "kron_sample", "fused_render", "view_sample")
+SOURCES = ("fused_decode", "fused_decode_bwd", "fused_decode_c128", "kron_sample", "fused_render", "view_sample",
+           "small_conv3d")
 HOST_SOURCES = ("preprocess",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -155,6 +156,10 @@ _SAMPLE_GEOM = (_i64, _i32, _i32, _i32, _i32, _i32, _f32)
 # the maps' table and its length, xy and its three strides, S, N,
 # align_corners, the rows and their first two strides
 _VIEW_ARGS = (ctypes.POINTER(_i64), _i32, _ptr, _i64, _i64, _i64, _i64, _i64, _i32, _ptr, _i64, _i64)
+# x, w, bias, out; B, Cin, D, H, W, Cout, Do, Ho, Wo, k, the three strides,
+# the used taps and their table; input channels a chunk, output channels a
+# block, chain warps a block, the walk
+_SMALL_CONV_ARGS = (*[_ptr] * 4, *[_i32] * 14, ctypes.POINTER(_i32), *[_i32] * 4)
 
 
 class Kernel(NamedTuple):
@@ -202,6 +207,8 @@ KERNELS: Dict[str, Kernel] = {
                               ((r"view_sample_fwd_kernel", None),)),
     "view_sample_bwd": Kernel({None: ("view_sample", "view_sample_bwd")}, _VIEW_ARGS,
                               ((r"view_sample_bwd_kernel", None),)),
+    "small_conv3d": Kernel({None: ("small_conv3d", "small_conv3d_fwd")}, _SMALL_CONV_ARGS,
+                           ((r"small_conv3d_kernel", None),)),
 }
 
 # (entry point, C) -> its C function, argument types bound

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Layout, locality and cost-split sweeps of the port's kernels on one GPU.
 
-    python3 kernel_sweep.py [--only k4,k2,k6,decode,k5,k7,samplers]
+    python3 kernel_sweep.py [--only k4,k2,k6,decode,k5,k7,samplers,k9]
 
 Each section runs in a process of its own.
 
@@ -36,6 +36,17 @@ Prints one JSON line per measurement, then the card's name and power limit:
           `trilinear_sample_pallas`) on both point sets at those shapes:
           the section to run in a copy of an earlier version of the port,
           beside this one, to time two designs in one call
+  k9      the small-volume convolution K9 (`small_conv3d`) at each of
+          the hydrant UNet's 51 routed calls (inputs and weights of the
+          benchmark's hydrant model from a seed), checked bitwise against
+          `F.conv3d` (cuDNN, TF32 off), with the L2 cache flushed before
+          each call as in a step, whose 180 MB of used weights pass
+          through it: ms a call by CUDA events (a CUDA graph of the flush
+          and the call, replayed, less the flush's own) beside
+          `F.conv3d`'s and the bound (`benchmark/counts/unet_small_convs`:
+          used weights, bias, input and output at 3.35 TB/s or in-bounds
+          FLOPs at 495 TFLOP/s), a line a call and a line a level; then a
+          graphed UNet forward's device ms by kernel family
 Each result is checked against the plain version (K4 and K7 1e-4
 absolute, K5 and K6 1e-4 of their scale, K1/K3 1e-4 absolute, K2 1e-3 of
 each cotangent's scale, as `chip_smoke.py`) after its line is printed;
@@ -46,7 +57,7 @@ import argparse
 import subprocess
 import sys
 
-SOURCES = ["kron_sample", "fused_decode", "fused_decode_bwd", "fused_render"]
+SOURCES = ["kron_sample", "fused_decode", "fused_decode_bwd", "fused_render", "small_conv3d"]
 
 
 def main():
@@ -56,7 +67,7 @@ def main():
         print("kernel_sweep.py: no CUDA device", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser()
-    parser.add_argument("--only", default="k4,k2,k6,decode,k5,k7,samplers")
+    parser.add_argument("--only", default="k4,k2,k6,decode,k5,k7,samplers,k9")
     opts = parser.parse_args()
     sections = opts.only.split(",")
     if len(sections) > 1:
@@ -247,9 +258,119 @@ def main():
                     check_sample(label, pts, call(), want, sweep="k7", lanes=1 << lanes_log2,
                                  port_layout=lanes_log2 == ks.sample_layout(C)[0], ms=ms)
 
+    if "k9" in only:
+        small_conv_sweep(dev, emit)
+
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0
+
+
+def small_conv_sweep(dev, emit, seed=2 ** 31 + 27, iters=20):
+    """K9 against `F.conv3d` at the hydrant UNet's routed calls (module
+    docstring, `k9`)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.counts.unet_small_convs import Conv
+    from benchmark.harness.manifest import Manifest
+    from benchmark.harness.program import Context, program_model
+    from chip_smoke import device_rows
+    from holo_diffusion_torch.models.unet3d import RoutedConv3d
+    from holo_diffusion_torch.ops import small_conv3d as sc
+
+    man = Manifest()
+    ctx = Context(man.config("hydrant"), man.mix("sample"), man.limits("hydrant.sample"), seed, dev)
+    model = program_model(ctx, ctx.weights()).eval()
+    unet = model.net_3d
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(1, model.resol, model.resol, model.resol, model.feature_size, generator=g, device=dev)
+    t = torch.tensor([500], device=dev)
+    calls = []
+
+    def grab(conv, args):
+        if sc.refusal(args[0].shape, args[0].device, args[0].dtype, conv) is None:
+            calls.append((args[0].clone(), conv))
+
+    hooks = [m.register_forward_pre_hook(grab) for m in unet.modules() if isinstance(m, RoutedConv3d)]
+    with torch.no_grad():
+        unet._forward(x, t)
+    for h in hooks:
+        h.remove()
+    flush = torch.empty(256 * 2 ** 20 // 4, device=dev)
+
+    def replay_ms(*fns):
+        """ms of one replay of a CUDA graph of a 256 MB fill (the L2 cache
+        flushed, as in a step whose weights pass through it) and fns, by
+        CUDA events over `iters` replays."""
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for fn in fns:
+                fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            flush.zero_()
+            for fn in fns:
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    levels = {}
+    with torch.no_grad():
+        fill_ms = replay_ms()
+        for i, (inp, conv) in enumerate(calls):
+            k, stride = conv.kernel_size[0], conv.stride
+            n_in = inp.shape[-1]
+            n_out = sc.output_extent(n_in, k, stride[0], k // 2)
+            count = Conv(conv.in_channels, conv.out_channels, k, stride[0], n_in, n_out, inp.shape[0])
+            walk = sc.kind(inp.shape[2:], k, stride, len(sc.used_taps(inp.shape[2:], k, stride)))
+            ref = lambda: F.conv3d(inp, conv.weight, conv.bias, stride, k // 2)  # noqa: E731
+            k9 = lambda: sc.small_conv3d(inp, conv.weight, conv.bias, stride)  # noqa: E731
+            got, want, again = k9(), ref(), k9()
+            err = float((got - want).abs().max())
+            bound = count.least_seconds(495e12, 3.35e12) * 1e3
+            ms_k9, ms_lib = replay_ms(k9) - fill_ms, replay_ms(ref) - fill_ms
+            emit({"sweep": "k9", "call": i, "cin": count.cin, "cout": count.cout, "k": k, "stride": stride[0],
+                  "n_in": n_in, "n_out": n_out, "walk": walk,
+                  "ms": ms_k9, "library_ms": ms_lib, "bound_ms": bound, "max_abs_err": err,
+                  "bitwise_rerun": bool(torch.equal(got, again))})
+            if not (err == 0 and torch.equal(got, again)):
+                raise AssertionError(f"K9 call {i}: {err} from cuDNN, rerun bitwise {torch.equal(got, again)}")
+            lv = levels.setdefault(n_out, {"convs": 0, "ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "used_mb": 0.0})
+            lv["convs"] += 1
+            lv["ms"] += ms_k9
+            lv["library_ms"] += ms_lib
+            lv["bound_ms"] += bound
+            lv["used_mb"] += 4 * count.used_weights / 1e6
+    for n_out, lv in sorted(levels.items()):
+        emit({"sweep": "k9_level", "voxels": f"{n_out}^3", **lv, "k9_launches": lv["convs"]})
+
+    # a graphed forward's device time by kernel family
+    n_fwd = 10
+    with torch.no_grad():
+        for _ in range(3):
+            unet(x, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_fwd):
+                unet(x, t)
+            torch.cuda.synchronize()
+    fam = {}
+    for e in device_rows(prof):
+        if e.self_device_time_total > 0:
+            key = ("k9" if "small_conv3d" in e.key else "library_conv" if "conv" in e.key.lower()
+                   or "implicit_gemm" in e.key else "other")
+            fam[key] = fam.get(key, 0.0) + e.self_device_time_total / 1e3 / n_fwd
+    emit({"sweep": "k9_forward", "device_ms_a_forward": fam, "routed_calls": len(calls)})
 
 
 if __name__ == "__main__":
